@@ -1,0 +1,256 @@
+"""ViewFusion composable diffusion: the reverse samplers served by the port
+(counterpart of ``viewfusion_tpu/models/view_fusion.py``).
+
+One shared UNet predicts the noise of every (conditioning view, noisy
+target) pair; a per-pixel softmax over the views (masked to each
+sample's ``view_count``) composes the predictions.  The dense layout pads
+every sample to ``n_max`` views, as the JAX dense ``_denoise_views``.
+
+The reverse chain is a Python loop.  Per-step coefficients are computed
+on the host in float32 numpy from the schedule tables, with the same
+expressions as the JAX samplers, so no step waits on the device.  Noise
+comes from a ``torch.Generator`` on the model's device; ``noise=`` feeds
+explicit per-step draws instead (tests feed the draws the JAX chain
+makes).
+
+Tensors are NHWC: y_cond (B, N, H, W, Cc), y_t (B, H, W, 3),
+view_count (B,), angle (B,).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from viewfusion_tpu_torch.config import Config
+from viewfusion_tpu_torch.models.unet import UNet
+from viewfusion_tpu_torch.ops.schedules import DiffusionSchedule
+
+__all__ = ["ViewFusion", "view_mask", "ddim_timesteps", "dpm_timesteps"]
+
+_f32 = np.float32
+
+
+def view_mask(view_count: torch.Tensor, n_max: int) -> torch.Tensor:
+    """(B,) counts -> (B, n_max) boolean validity mask."""
+    return (torch.arange(n_max, device=view_count.device)[None, :]
+            < view_count[:, None])
+
+
+def ddim_timesteps(num_timesteps: int, num_steps: int) -> np.ndarray:
+    """Descending DDIM grid, bit-for-bit the JAX one:
+    ``jnp.linspace(0, T-1, n)`` in float32, rounded half to even.  XLA
+    compiles that linspace to ``iota * f32(f32(1/div) * (T-1))`` (the
+    division becomes a reciprocal product and the constants fold), with
+    the endpoint appended; ``torch.linspace``, float64 ``np.linspace``
+    and the unfolded ``iota/div*(T-1)`` pick other steps for some
+    (T, n), e.g. T=200 with n=23 or n=63."""
+    stop = _f32(num_timesteps - 1)
+    if num_steps == 1:
+        grid = np.zeros(1, _f32)
+    else:
+        div = num_steps - 1
+        step = (_f32(1) / _f32(div)) * stop
+        grid = np.append(np.arange(div, dtype=_f32) * step, stop)
+    return np.round(grid).astype(np.int64)[::-1].copy()
+
+
+def dpm_timesteps(gammas: np.ndarray, num_steps: int,
+                  grid: str = "lambda") -> np.ndarray:
+    """Descending DPM-Solver step grid (host code of the JAX sampler):
+    uniform in half-log-SNR lambda (default) or in t; duplicate nearest
+    indices collapse."""
+    t_count = gammas.shape[0]
+    if grid == "time":
+        idx = np.linspace(0, t_count - 1, num_steps).round().astype(int)
+    elif grid == "lambda":
+        g_np = np.asarray(gammas, np.float64)
+        lam_np = 0.5 * (np.log(g_np) - np.log1p(-g_np))
+        targets = np.linspace(lam_np[-1], lam_np[0], num_steps)
+        idx = np.abs(lam_np[None, :] - targets[:, None]).argmin(axis=1)
+    else:
+        raise ValueError(f"grid must be 'lambda' or 'time': {grid!r}")
+    return np.unique(idx)[::-1].copy()
+
+
+def _lam(g):
+    """Half-log-SNR log(alpha/sigma) with alpha^2 = g, in float32."""
+    return _f32(0.5) * (np.log(g) - np.log1p(-g))
+
+
+class ViewFusion:
+    """The UNet, the active schedule and the composition flags.
+
+    ``unet_forwards`` counts UNet calls (one per sampler step)."""
+
+    def __init__(self, unet: UNet, schedule: DiffusionSchedule,
+                 weighting_train: bool = True,
+                 weighting_inference: bool = True):
+        self.unet = unet
+        self.schedule = schedule
+        self.weighting_train = weighting_train
+        self.weighting_inference = weighting_inference
+        self.unet_forwards = 0
+
+    @classmethod
+    def from_config(cls, cfg: Config,
+                    dtype: Optional[torch.dtype] = None) -> "ViewFusion":
+        if cfg.denoise_net != "unet":
+            raise NotImplementedError(
+                f"denoise_net {cfg.denoise_net!r} is not ported yet")
+        if dtype is None:
+            dtype = getattr(torch, cfg.train.compute_dtype)
+        # the *train* schedule is active for inference too
+        sched = DiffusionSchedule.create(
+            cfg.diffusion.phases[cfg.diffusion.active_phase])
+        return cls(UNet(cfg.denoiser, dtype=dtype), sched,
+                   weighting_train=cfg.diffusion.weighting_train,
+                   weighting_inference=cfg.diffusion.weighting_inference)
+
+    # ------------------------------------------------------------------
+    def _denoise_views(self, y_cond, y_target, noise_level, angle):
+        """Dense per-view UNet pass: (B, N, ...) rows -> (B, N, H, W, out)."""
+        b, n, h, w, _ = y_cond.shape
+        y_rep = y_target[:, None].expand(b, n, h, w, y_target.shape[-1])
+        x = torch.cat([y_cond, y_rep.to(y_cond.dtype)], dim=-1)
+        level_rep = noise_level[:, None].expand(b, n).reshape(-1)
+        angle_rep = angle.reshape(-1)[:, None].expand(b, n).reshape(-1)
+        out = self.unet(x.reshape(b * n, h, w, -1), angle_rep, level_rep)
+        self.unet_forwards += 1
+        return out.reshape(b, n, h, w, -1)
+
+    @staticmethod
+    def compose(unet_out, mask, weighting: bool):
+        """Compose per-view noise predictions: -inf masked softmax over
+        the view axis (masked views get exactly zero weight), or the mean
+        over valid views when ``weighting`` is off.
+        Returns (noise_hat, logits, weights)."""
+        noise_all = unet_out[..., :3]
+        m = mask[:, :, None, None, None]
+        if weighting:
+            logits = unet_out[..., 3:].float()
+            masked = torch.where(m, logits, float("-inf"))
+            zmax = masked.amax(dim=1, keepdim=True)
+            unnorm = torch.where(m, torch.exp(masked - zmax), 0.0)
+            weights = unnorm / unnorm.sum(dim=1, keepdim=True)
+            return (noise_all * weights).sum(dim=1), logits, weights
+        counts = m.sum(dim=1, dtype=torch.float32)
+        noise_hat = torch.where(m, noise_all, 0.0).sum(dim=1) / counts
+        return noise_hat, None, None
+
+    def _eps(self, y_cond, y, t, mask, angle):
+        b = y.shape[0]
+        level = torch.full((b,), float(self.schedule.gammas[t]),
+                           device=y.device)
+        out = self._denoise_views(y_cond, y, level, angle)
+        return self.compose(out, mask, self.weighting_inference)[0]
+
+    def _x0(self, y, eps, t):
+        s = self.schedule
+        x0 = (float(s.sqrt_recip_gammas[t]) * y
+              - float(s.sqrt_recipm1_gammas[t]) * eps)
+        return x0.clamp(-1.0, 1.0)
+
+    def _start(self, y_cond, view_count, angle, y_t, generator):
+        b, n, h, w, _ = y_cond.shape
+        if y_t is None:
+            y_t = torch.randn((b, h, w, 3), generator=generator,
+                              device=y_cond.device)
+        # the UNet's first op casts to its dtype: casting here once gives
+        # it the same values at a fraction of the per-step traffic
+        return (y_cond.to(self.unet.dtype), y_t, view_mask(view_count, n),
+                angle.reshape(-1))
+
+    @staticmethod
+    def _noise(noise, i, like, generator):
+        if noise is not None:
+            return noise[i].to(like.device, torch.float32)
+        return torch.randn(like.shape, generator=generator,
+                           device=like.device)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def generate_ddim(self, y_cond, view_count, angle, num_steps: int = 50,
+                      eta: float = 1.0, y_t=None,
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[Sequence[torch.Tensor]] = None):
+        """DDIM over a strided subset of the trained schedule (JAX
+        ``generate_ddim``).  eta=1 injects DDPM-scale noise per step,
+        eta=0 is deterministic.  ``noise[i]`` (B, H, W, 3) replaces the
+        draw of step i.  Returns the samples (B, H, W, 3) f32."""
+        sched = self.schedule
+        T = sched.num_timesteps
+        if not 1 <= num_steps <= T:
+            raise ValueError(f"num_steps must be in [1, {T}], got {num_steps}")
+        ts = ddim_timesteps(T, num_steps)
+        ts_prev = np.append(ts[1:], -1)
+        y_cond, y_t, mask, angle = self._start(y_cond, view_count, angle,
+                                               y_t, generator)
+        for i, (t, t_prev) in enumerate(zip(ts, ts_prev)):
+            gamma_t = sched.gammas[t]
+            gamma_prev = sched.gammas[t_prev] if t_prev >= 0 else _f32(1.0)
+            eps = self._eps(y_cond, y_t, t, mask, angle)
+            y0 = self._x0(y_t, eps, t)
+            # re-derive eps from the clipped y0, as ancestral sampling does
+            eps = ((y_t - float(np.sqrt(gamma_t)) * y0)
+                   / float(np.sqrt(_f32(1.0) - gamma_t)))
+            sigma = _f32(eta) * np.sqrt(
+                (_f32(1.0) - gamma_prev) / (_f32(1.0) - gamma_t)
+                * (_f32(1.0) - gamma_t / gamma_prev))
+            dir_coef = np.sqrt(np.maximum(
+                _f32(1.0) - gamma_prev - sigma ** 2, _f32(0.0)))
+            y_next = float(np.sqrt(gamma_prev)) * y0 + float(dir_coef) * eps
+            if t_prev >= 0 and sigma != 0:
+                y_next = y_next + float(sigma) * self._noise(
+                    noise, i, y_t, generator)
+            y_t = y_next
+        return y_t
+
+    @torch.no_grad()
+    def generate_dpm(self, y_cond, view_count, angle, num_steps: int = 20,
+                     y_t=None, generator: Optional[torch.Generator] = None,
+                     grid: str = "lambda", sde: bool = False,
+                     noise: Optional[Sequence[torch.Tensor]] = None):
+        """DPM-Solver++(2M) in the x0 parameterization (JAX
+        ``generate_dpm``): the probability-flow ODE, or with ``sde`` its
+        SDE variant with per-step noise (``noise[i]`` replaces the draw of
+        step i).  The last step jumps to the clean prediction.
+        Returns the samples (B, H, W, 3) f32."""
+        sched = self.schedule
+        if not 2 <= num_steps <= sched.num_timesteps:
+            raise ValueError(f"num_steps must be in [2, "
+                             f"{sched.num_timesteps}], got {num_steps}")
+        ts = dpm_timesteps(sched.gammas, num_steps, grid)
+        ts_next = np.append(ts[1:], -1)
+        y_cond, y, mask, angle = self._start(y_cond, view_count, angle,
+                                             y_t, generator)
+        x0_prev, h_prev = None, _f32(1.0)
+        for i, (t, t_next) in enumerate(zip(ts, ts_next)):
+            x0 = self._x0(y, self._eps(y_cond, y, t, mask, angle), t)
+            g_cur = sched.gammas[t]
+            g_next = sched.gammas[max(t_next, 0)]
+            hh = _lam(g_next) - _lam(g_cur)
+            if x0_prev is None:  # first step: first order
+                d = x0
+            else:
+                c = hh / (_f32(2.0) * h_prev)
+                d = float(_f32(1.0) + c) * x0 - float(c) * x0_prev
+            sigma_cur = np.sqrt(_f32(1.0) - g_cur)
+            sigma_next = np.sqrt(_f32(1.0) - g_next)
+            alpha_next = np.sqrt(g_next)
+            if t_next < 0:
+                y = x0
+            elif sde:
+                decay = np.exp(-hh)
+                mix = -np.expm1(_f32(-2.0) * hh)  # 1 - e^{-2h}
+                z = self._noise(noise, i, y, generator)
+                y = (float(sigma_next / sigma_cur * decay) * y
+                     + float(alpha_next * mix) * d
+                     + float(sigma_next * np.sqrt(mix)) * z)
+            else:
+                y = (float(sigma_next / sigma_cur) * y
+                     - float(alpha_next * np.expm1(-hh)) * d)
+            x0_prev, h_prev = x0, hh
+        return y

@@ -16,7 +16,23 @@ Phases (any failure raises and exits non-zero without the final line):
      seeded random weights answers DDIM and DPM requests from threads;
      the kernels' launch counters must rise by exactly the per-forward
      site counts times the UNet forwards served;
-  7. a small chain on the card against the same chain on the CPU.
+  7. a small chain on the card against the same chain on the CPU;
+  8. K2 GroupNorm(+SiLU) backward at every GroupNorm site of the paper
+     UNet at the training batch (R = 98 rows: the stratified view counts
+     of configs/small-tpu-1.yaml's batch of 28), bf16 and f32, against
+     its plain version, with times and the autograd backward of
+     F.silu(F.group_norm(x)) as the library yardstick;
+  9. one full-width bf16 packed training step (loss and every parameter
+     gradient) through the kernels against the same step with the plain
+     versions patched in;
+ 10. training, the second main path: the Trainer takes TRAIN_STEPS steps
+     at small-tpu-1 from seeded weights and seeded batches in the
+     loader's layout; the launch counters must rise by exactly the
+     per-forward GroupNorm and attention site counts per step (K1 and K2
+     once per GroupNorm site, K3 once per attention site); ms per step,
+     peak memory and one profiled step;
+ 11. two tiny f32 train steps on the card against the same steps on the
+     CPU.
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 
@@ -25,7 +41,13 @@ sides round one f32 value; the sums run in another order); saved
 statistics within rtol 1e-4; f32 attention outputs within 1e-4 abs
 (f32 sums over the keys in another order); the bf16 UNet within 2e-2
 relative L2 (bf16 rounding flips from the GroupNorm and attention
-outputs, carried through ~60 layers); the f32 chain within 1e-4.
+outputs, carried through ~60 layers); the f32 chain within 1e-4.  K2:
+f32 dx within 1e-5 of its scale, the dscale/dbias partials within 1e-4
+of their scale (f32 sums of L terms in another order), two calls equal
+bit for bit.  The bf16 training step: loss within 1e-2 relative and the
+gradient (all parameters as one vector) within 5e-2 relative L2 (the
+forward's 1e-2 flips, carried back through the same layers).  The tiny
+f32 train steps: losses, gradients, parameters and EMA within 1e-4.
 """
 
 from __future__ import annotations
@@ -48,9 +70,13 @@ from viewfusion_tpu_torch.models.unet import GroupNormAct, SelfAttention, UNet
 from viewfusion_tpu_torch.models.view_fusion import ViewFusion
 from viewfusion_tpu_torch.ops.attention import (
     spatial_self_attention, spatial_self_attention_reference)
-from viewfusion_tpu_torch.ops.groupnorm import (group_norm_act,
-                                                group_norm_act_reference)
+from viewfusion_tpu_torch.ops.groupnorm import (
+    group_norm_act, group_norm_act_backward,
+    group_norm_act_backward_reference, group_norm_act_reference)
 from viewfusion_tpu_torch.serving import ViewFusionService
+from viewfusion_tpu_torch.training.trainer import (Trainer,
+                                                   global_packed_counts,
+                                                   norm_img)
 
 # configs/small-tpu-4.yaml, the fields the serving path reads (kept in
 # code: the card's machine may have no PyYAML)
@@ -80,6 +106,9 @@ TINY_UNET = {"image_size": 8, "in_channel": 6, "out_channel": 6,
 SEED = 0
 BATCH, MAX_VIEWS = 8, 6
 ROWS = BATCH * MAX_VIEWS        # UNet rows per serving batch
+TRAIN_BATCH = 28                # configs/small-tpu-1.yaml
+TRAIN_ROWS = 98                 # sum of stratified_count_multiset(28, 6)
+TRAIN_STEPS = 6                 # Trainer steps; the first is timed apart
 DDIM_STEPS, DPM_STEPS = 50, 20
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 # peak rate by input type: bf16 on the tensor cores (dense); f32 outside
@@ -162,6 +191,27 @@ def add_site(tot, count, ms, plain_ms, lib_ms, bms, nbytes, err) -> None:
         tot["bound_ms"] += count * bms
         tot["bound_bytes_ms"] += count * (nbytes / HBM_BYTES_PER_S * 1e3)
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
+
+
+def train_config(**tpu) -> Config:
+    """configs/small-tpu-1.yaml: the paper model on one chip (batch 28);
+    it differs from small-tpu-4.yaml in the batch size alone."""
+    raw = json.loads(json.dumps(PAPER_CONFIG))
+    raw["data"]["params"]["batch_size"] = TRAIN_BATCH
+    raw["tpu"].update(tpu)
+    return Config.from_dict(raw)
+
+
+def train_batch(cfg, it: int, rng) -> dict:
+    """One host batch in the loader's layout (uint8 images), with the
+    packed view counts of step ``it`` (salt = it)."""
+    b, n, hw = cfg.data.batch_size, cfg.data.max_views, cfg.unet.image_size
+    counts, si, vi = global_packed_counts(cfg.train.seed, it, b, n)
+    return {"target": rng.integers(0, 256, (b, hw, hw, 3), dtype=np.uint8),
+            "cond": rng.integers(0, 256, (b, n, hw, hw, 3), dtype=np.uint8),
+            "angle": rng.uniform(0, 2 * np.pi, b).astype(np.float32),
+            "view_count": counts.astype(np.int32), "sample_idx": si,
+            "view_idx": vi}
 
 
 def paper_unet(device) -> UNet:
@@ -289,6 +339,20 @@ def check_attention(attn_sites, device) -> dict:
     return tot
 
 
+def _plain_unet_ops():
+    """Patch the plain versions into the UNet's namespace (autograd then
+    differentiates the plain ops); returns the restore function."""
+    saved = unet_module.group_norm_act, unet_module.spatial_self_attention
+    unet_module.group_norm_act = \
+        lambda *a, **kw: group_norm_act_reference(*a, **kw)[0]
+    unet_module.spatial_self_attention = spatial_self_attention_reference
+
+    def restore():
+        unet_module.group_norm_act, \
+            unet_module.spatial_self_attention = saved
+    return restore
+
+
 def check_full_unet(unet: UNet, device) -> None:
     """The paper UNet with the kernels against itself with the plain
     versions patched into the module's namespace."""
@@ -298,15 +362,11 @@ def check_full_unet(unet: UNet, device) -> None:
         got = unet(*inputs)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        saved = unet_module.group_norm_act, unet_module.spatial_self_attention
-        unet_module.group_norm_act = \
-            lambda *a, **kw: group_norm_act_reference(*a, **kw)[0]
-        unet_module.spatial_self_attention = spatial_self_attention_reference
+        restore = _plain_unet_ops()
         try:
             want = unet(*inputs)
         finally:
-            unet_module.group_norm_act, \
-                unet_module.spatial_self_attention = saved
+            restore()
     rel = ((got - want).norm() / want.norm()).item()
     say(f"UNet {ROWS}x64x64 bf16, kernels vs plain: rel L2 {rel:.3g}, max "
         f"abs {(got - want).abs().max().item():.3g} of "
@@ -319,7 +379,6 @@ def profile_forward(unet: UNet, device) -> None:
     """Where one UNet forward at the serving batch spends its time:
     device time by kernel family from torch.profiler, against the wall
     time of the forward (the rest is the device waiting on the host)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     inputs = unet_inputs(ROWS, unet.config, device, seed=SEED + 4)
@@ -334,27 +393,45 @@ def profile_forward(unet: UNet, device) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             unet(*inputs)
             torch.cuda.synchronize()
+    report_profile(prof, f"one UNet forward at {ROWS} rows", wall_ms)
+
+
+def report_profile(prof, what: str, wall_ms: float) -> float:
+    """Device time by kernel family from a torch.profiler run, against
+    the wall time of the work it traced; returns the device time (ms).
+    Ranges that code annotates (torch.optim's ``Optimizer.step#Adam.step``)
+    span kernels and are left out; kernel names may contain ``#``
+    themselves (``{lambda(float)#1}``)."""
+    from torch.autograd import DeviceType
+
     kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
     dev_us = {e.key: getattr(e, "self_device_time_total", 0) for e in kernels}
     total_ms = sum(dev_us.values()) / 1e3
     if not total_ms:
-        say("profile: torch.profiler saw no device time (not measured)")
-        return
+        say(f"profile of {what}: torch.profiler saw no device time "
+            f"(not measured)")
+        return 0.0
     fam = Counter()
     for name, us in dev_us.items():
         low = name.lower()
-        key = ("K1 groupnorm" if "gn_" in low else
+        key = ("K2 groupnorm bwd" if "gn_bwd" in low else
+               "K1 groupnorm" if "gn_" in low else
                "K3 attention" if "attn_fwd" in low else
                "conv/gemm" if any(w in low for w in (
                    "conv", "gemm", "xmma", "cutlass", "cudnn", "sm90"))
+               else "optimizer" if any(w in low for w in (
+                   "multi_tensor", "foreach", "adam"))
                else "other")
         fam[key] += us / 1e3
-    say(f"profile of one UNet forward at {ROWS} rows: wall {wall_ms:.2f} ms,"
-        f" device busy {total_ms:.2f} ms ({total_ms / wall_ms:.0%}), "
+    say(f"profile of {what}: wall {wall_ms:.2f} ms, device busy "
+        f"{total_ms:.2f} ms ({total_ms / wall_ms:.0%}), "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in fam.most_common()))
     for name, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         say(f"  {us / 1e3:7.3f} ms  {name[:90]}")
+    return total_ms
 
 
 def serve_requests(service: ViewFusionService, rng) -> list:
@@ -412,6 +489,235 @@ def check_chain_against_cpu(device) -> None:
     say(f"tiny f32 DDIM chain, card vs CPU: max abs {err:.3g}")
     if not err <= 1e-4:
         raise AssertionError(f"card chain disagrees with the CPU: {err}")
+
+
+def check_group_norm_backward(gn_sites, groups: int, device) -> dict:
+    """K2 against its plain version at each GroupNorm site of the paper
+    UNet at the training batch, from K1's saved statistics: bf16 (timed)
+    and f32 at every site, plus the other act at the largest site.
+    Per-step totals weight each site by its count in one backward."""
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_bytes_ms", "max_abs_err"), 0.0)
+    big = max(gn_sites)
+    other = (big[0], big[1], "none" if big[2] == "silu" else "silu")
+    cases = [(site, dtype, n if dtype == torch.bfloat16 else 0)
+             for site, n in sorted(gn_sites.items())
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(other, torch.bfloat16, 0), (other, torch.float32, 0)]
+    for (l, c, act), dtype, count in cases:
+        x = (torch.randn((TRAIN_ROWS, l, c), generator=g, device=device)
+             * 1.5 + 0.5).to(dtype)
+        gy = torch.randn((TRAIN_ROWS, l, c), generator=g,
+                         device=device).to(dtype)
+        scale = torch.randn((c,), generator=g, device=device) * 0.5 + 1.0
+        bias = torch.randn((c,), generator=g, device=device) * 0.5
+        kw = dict(groups=groups, act=act)
+        _, mean, rstd = group_norm_act(x, scale, bias, return_stats=True,
+                                       **kw)
+        args = (x, gy, scale, bias, mean, rstd)
+        out = group_norm_act_backward(*args, **kw)
+        again = group_norm_act_backward(*args, **kw)
+        ref = group_norm_act_backward_reference(*args, **kw)
+        torch.cuda.synchronize()
+        err = (out[0].float() - ref[0].float()).abs().max().item()
+        scale_dx = ref[0].float().abs().max().item()
+        tol = (bf16_ulp(scale_dx) if dtype == torch.bfloat16
+               else 1e-5 * scale_dx)
+        perr = max((a - b).abs().max().item() / b.abs().max().item()
+                   for a, b in zip(out[1:], ref[1:]))
+        if not (err <= tol and perr <= 1e-4):
+            raise AssertionError(f"K2 {(l, c, act)} {dtype}: dx err {err} "
+                                 f"(tol {tol}), partials rel err {perr}")
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"K2 {(l, c, act)} {dtype}: two calls differ")
+        name = f"K2 L={l} C={c} act={act} {str(dtype)[6:]} x{count}"
+        if not count:
+            say(f"{name}: dx err {err:.3g} (tol {tol:.3g}), partials rel "
+                f"err {perr:.3g}, repeatable")
+            continue
+        # the backward autograd runs for F.silu(F.group_norm(x4)) on
+        # contiguous NCHW tensors: its two ATen ops, called directly (the
+        # autograd engine's own thread cannot be captured into the timing
+        # graph)
+        h = int(round(l ** 0.5))
+        x4 = x.view(TRAIN_ROWS, h, h, c).permute(0, 3, 1, 2).contiguous()
+        g4 = gy.view(TRAIN_ROWS, h, h, c).permute(0, 3, 1, 2).contiguous()
+        w_lib, b_lib = scale.to(dtype), bias.to(dtype)
+        y4, mean4, rstd4 = torch.ops.aten.native_group_norm(
+            x4, w_lib, b_lib, TRAIN_ROWS, c, l, groups, 1e-5)
+
+        def library():
+            gz = torch.ops.aten.silu_backward(g4, y4) if act == "silu" \
+                else g4
+            return torch.ops.aten.native_group_norm_backward(
+                gz, x4, mean4, rstd4, w_lib, TRAIN_ROWS, c, l, groups,
+                [True, True, True])
+
+        ms = device_ms(lambda: group_norm_act_backward(*args, **kw))
+        eager_ms = call_ms(lambda: group_norm_act_backward(*args, **kw))
+        plain_ms = device_ms(
+            lambda: group_norm_act_backward_reference(*args, **kw))
+        lib_ms = device_ms(library)
+        nbytes = (3 * x.numel() * x.element_size() + 2 * c * 4
+                  + 2 * TRAIN_ROWS * groups * 4 + 2 * TRAIN_ROWS * c * 4)
+        bms, by = bound_ms(nbytes, 16 * x.numel(), torch.float32)
+        say(f"{name}: dx err {err:.3g} (tol {tol:.3g}) partials rel err "
+            f"{perr:.3g} kernel {ms * 1e3:.1f} us (eager call "
+            f"{eager_ms * 1e3:.1f} us) plain {plain_ms * 1e3:.1f} us "
+            f"library {lib_ms * 1e3:.1f} us bound {bms * 1e3:.1f} us ({by})"
+            f" = {bms / ms:.0%} of bound")
+        add_site(tot, count, ms, plain_ms, lib_ms, bms, nbytes, err)
+    return tot
+
+
+def check_train_step(device) -> None:
+    """One full-width bf16 packed training step at small-tpu-1 (loss and
+    every parameter gradient) through the kernels, against the same step
+    with the plain versions, on the same batch and draws."""
+    cfg = train_config()
+    torch.manual_seed(SEED)
+    model = ViewFusion.from_config(cfg)
+    model.unet.to(device).train()
+    rng = np.random.default_rng(SEED + 6)
+    host = train_batch(cfg, 0, rng)
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    b, hw = cfg.data.batch_size, cfg.unet.image_size
+    args = (norm_img(put(host["target"])), norm_img(put(host["cond"])),
+            put(host["view_count"]).long(), put(host["angle"]),
+            put(host["sample_idx"]).long(), put(host["view_idx"]).long())
+    noise = put(rng.normal(size=(b, hw, hw, 3)).astype(np.float32))
+    gammas = put(rng.uniform(0.01, 0.99, b).astype(np.float32))
+    names, params = zip(*model.unet.named_parameters())
+
+    def step():
+        loss = model.loss_packed(*args, noise=noise, sample_gammas=gammas)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    loss_k, grads_k = step()
+    torch.cuda.synchronize()
+    restore = _plain_unet_ops()
+    try:
+        loss_p, grads_p = step()
+    finally:
+        restore()
+    rel_loss = abs((loss_k - loss_p).item()) / abs(loss_p.item())
+    flat = [torch.cat([t.float().flatten() for t in gs])
+            for gs in (grads_k, grads_p)]
+    rel = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
+    rels = [((gk.float() - gp.float()).norm()
+             / gp.float().norm().clamp_min(1e-30)).item()
+            for gk, gp in zip(grads_k, grads_p)]
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    say(f"bf16 train step at {TRAIN_ROWS} rows, kernels vs plain: loss "
+        f"{loss_k.item():.6f} vs {loss_p.item():.6f} (rel {rel_loss:.3g}), "
+        f"gradient rel L2 {rel:.3g}, worst tensor {rels[worst]:.3g} "
+        f"({names[worst]})")
+    if not (torch.isfinite(flat[0]).all() and rel_loss <= 1e-2
+            and rel <= 5e-2):
+        raise AssertionError(f"train step disagrees: loss rel {rel_loss}, "
+                             f"gradient rel L2 {rel}")
+
+
+def run_trainer(device, k1_sites: int, k3_sites: int) -> dict:
+    """Training, a main path: the Trainer at small-tpu-1 from seeded
+    weights takes TRAIN_STEPS steps on seeded batches; counters must
+    rise by exactly the site counts per step.  Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = train_config()
+    trainer = Trainer(cfg, device=device, seed=SEED)
+    rng = np.random.default_rng(SEED + 7)
+    batches = [train_batch(cfg, it, rng) for it in range(TRAIN_STEPS + 1)]
+    start = [p.detach().clone() for p in trainer.params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    group_norm_act.launches = group_norm_act_backward.launches = 0
+    spatial_self_attention.launches = 0
+    group_norm_act_backward.grad_copies = 0
+    trainer.model.unet_forwards = 0
+    losses, times = [], []
+    for it in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batches[it]).item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {"k1": group_norm_act.launches,
+                "k2": group_norm_act_backward.launches,
+                "k3": spatial_self_attention.launches}
+    copies = group_norm_act_backward.grad_copies
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = trainer.model.unet_forwards
+    want = {"k1": k1_sites * steps, "k2": k1_sites * steps,
+            "k3": k3_sites * steps}
+    if steps != TRAIN_STEPS or launches != want:
+        raise AssertionError(f"training launch counters {launches} != {want}"
+                             f" ({steps} UNet forwards)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    moved = sum(not torch.equal(a, b) for a, b in zip(trainer.params, start))
+    if not moved:
+        raise AssertionError("no parameter changed in training")
+    steady = sorted(times[1:])
+    say(f"Trainer small-tpu-1, {TRAIN_ROWS} rows bf16: losses "
+        + " ".join(f"{v:.5f}" for v in losses)
+        + f"; ms per step: first {times[0]:.1f}, then "
+        + " ".join(f"{t:.1f}" for t in times[1:])
+        + f" (median {steady[len(steady) // 2]:.1f}); peak memory "
+        f"{peak_gb:.2f} GiB; {moved}/{len(start)} parameter tensors moved;"
+        f" {copies} upstream gradients copied to rows before K2")
+    say(f"launches on the training path: K1 {launches['k1']}, K2 "
+        f"{launches['k2']}, K3 {launches['k3']} over {steps} steps")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batches[TRAIN_STEPS]).item()
+    busy = report_profile(prof, f"one training step at {TRAIN_ROWS} rows",
+                          (time.perf_counter() - t0) * 1e3)
+    median = steady[len(steady) // 2]
+    say(f"device busy {busy:.2f} ms against the unprofiled median step "
+        f"{median:.1f} ms: {busy / median:.0%} (the profiler slows the "
+        f"host, not the kernels)")
+    return launches
+
+
+def check_train_against_cpu(device) -> None:
+    """Two tiny f32 train steps (packed, EMA, warmup: the first update is
+    zero) on the card against the same steps on the CPU, from the same
+    state with the same batches and fed draws."""
+    raw = json.loads(json.dumps(PAPER_CONFIG))
+    raw["model"]["denoise_net_params"] = TINY_UNET
+    raw["model"]["view_fusion_params"]["beta_schedule"]["train"][
+        "num_timesteps"] = 20
+    raw["data"]["params"].update(batch_size=4, max_views=3)
+    raw["tpu"].update(compute_dtype="float32", ema_decay=0.9, lr_warmup=1,
+                      peak_lr=1e-5)
+    cfg = Config.from_dict(raw)
+    torch.manual_seed(SEED)
+    state = UNet(cfg.unet).state_dict()
+    rng = np.random.default_rng(SEED + 8)
+    batches = [train_batch(cfg, it, rng) for it in range(2)]
+    draws = [(rng.normal(size=(4, 8, 8, 3)).astype(np.float32),
+              rng.uniform(0.05, 0.95, 4).astype(np.float32))
+             for _ in range(2)]
+    runs = []
+    for dev in ("cpu", device):
+        tr = Trainer(cfg, device=dev, state_dict=state)
+        losses = [tr.train_step(b, noise=n, sample_gammas=g).item()
+                  for b, (n, g) in zip(batches, draws)]
+        runs.append((losses, [[t.detach().cpu() for t in ts] for ts in (
+            tr.params, [p.grad for p in tr.params], tr.ema)]))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs[1][0],
+                                                       runs[0][0]))
+    errs = [max((a - b).abs().max().item() for a, b in zip(got, want))
+            for got, want in zip(runs[1][1], runs[0][1])]
+    gmax = max(g.abs().max().item() for g in runs[0][1][1])
+    say(f"tiny f32 train steps, card vs CPU: loss rel {loss_err:.3g}, "
+        f"params {errs[0]:.3g}, gradients {errs[1]:.3g} (of {gmax:.3g}), "
+        f"EMA {errs[2]:.3g}")
+    if not (loss_err <= 1e-4 and errs[0] <= 1e-4 and errs[1] <= 1e-4 * gmax
+            and errs[2] <= 1e-4):
+        raise AssertionError("card train steps disagree with the CPU")
 
 
 def main() -> int:
@@ -496,23 +802,48 @@ def main() -> int:
 
     # 7. a small chain on the card against the CPU
     check_chain_against_cpu(device)
+    del service
+    torch.cuda.empty_cache()
+
+    # 8. K2 at the paper UNet's GroupNorm sites at the training batch
+    k2 = check_group_norm_backward(gn_sites, cfg.unet.norm_groups, device)
+    torch.cuda.empty_cache()
+
+    # 9. full-width bf16 training step, kernels against plain versions
+    check_train_step(device)
+    torch.cuda.empty_cache()
+
+    # 10. training: the second main path
+    train_launches = run_trainer(device, k1_calls, k3_calls)
+    torch.cuda.empty_cache()
+
+    # 11. tiny f32 train steps on the card against the CPU
+    check_train_against_cpu(device)
 
     kernels = []
-    for name, route_src, replaces, tot, key in (
+    for name, route_src, replaces, tot, key, per in (
             ("group_norm_act", "viewfusion_tpu_torch/csrc/groupnorm.cu",
-             "viewfusion_tpu/ops/groupnorm.py:147", k1, "k1"),
+             "viewfusion_tpu/ops/groupnorm.py:147", k1, "k1",
+             f"one UNet forward at {ROWS} rows"),
+            ("group_norm_act_backward",
+             "viewfusion_tpu_torch/csrc/groupnorm_bwd.cu",
+             "viewfusion_tpu/ops/groupnorm.py:256", k2, "k2",
+             f"one training step (backward) at {TRAIN_ROWS} rows"),
             ("spatial_self_attention",
              "viewfusion_tpu_torch/csrc/attention.cu",
-             "viewfusion_tpu/ops/attention.py:47", k3, "k3")):
+             "viewfusion_tpu/ops/attention.py:47", k3, "k3",
+             f"one UNet forward at {ROWS} rows")):
+        by_path = {"serving": launches.get(key, 0),
+                   "training": train_launches[key]}
         kernels.append({
             "name": name, "route": "cuda", "source": route_src,
-            "replaces": replaces, "launches": launches[key],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": ("bytes" if tot["bound_bytes_ms"] >= tot["bound_ms"]
                          else "operations"),
-            "library_ms": tot["library_ms"],
-            "per": f"one UNet forward at {ROWS} rows",
+            "library_ms": tot["library_ms"], "per": per,
         })
     say(card_line())
     say(json.dumps({"kernels": kernels}))

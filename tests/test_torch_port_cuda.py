@@ -9,16 +9,21 @@ package, so it also runs where only PyTorch is installed:
 Shapes include ragged ones (channels per group 3 and 5, odd spatial
 sizes, token counts that are not a multiple of the 32-token tiles,
 channels that are not a multiple of 16) and the paper UNet's widths.
+The backward tests cover kernel K2 and the autograd Functions on the
+card, and a tiny UNet's gradients on the card against the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from viewfusion_tpu_torch.config import UNetConfig
+from viewfusion_tpu_torch.models.unet import UNet
 from viewfusion_tpu_torch.ops.attention import (
     spatial_self_attention, spatial_self_attention_reference)
-from viewfusion_tpu_torch.ops.groupnorm import (group_norm_act,
-                                                group_norm_act_reference)
+from viewfusion_tpu_torch.ops.groupnorm import (
+    group_norm_act, group_norm_act_backward,
+    group_norm_act_backward_reference, group_norm_act_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +124,143 @@ def test_attention_kernel_rejects_mismatched_inputs(device):
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros((2, 8, 16), device=device).transpose(1, 2)
         spatial_self_attention(t, t, t, 1.0)
+
+
+# (B, H, W, C, G): the forward's shapes plus two paper sites at R = 98
+GN_BWD_SHAPES = GN_SHAPES + [(98, 64, 64, 64, 32), (98, 8, 8, 640, 32)]
+
+
+def _gn_bwd_inputs(device, shape, act, dtype, seed=3):
+    b, h, w, c, g = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((b, h * w, c), generator=gen, device=device) * 1.5
+         + 0.5).to(dtype)
+    gy = torch.randn((b, h * w, c), generator=gen, device=device).to(dtype)
+    scale = torch.randn((c,), generator=gen, device=device) * 0.5 + 1.0
+    bias = torch.randn((c,), generator=gen, device=device) * 0.5
+    _, mean, rstd = group_norm_act(x, scale, bias, groups=g, act=act,
+                                   return_stats=True)
+    return x, gy, scale, bias, mean, rstd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "silu"])
+@pytest.mark.parametrize("shape", GN_BWD_SHAPES)
+def test_group_norm_backward_kernel_matches_plain(device, shape, act, dtype):
+    """K2 against its plain version from the same statistics: dx within
+    1e-5 of its scale (f32) or one bf16 ulp of its scale (both round one
+    f32 value once; the sums run in another order); the per-sample
+    partials within 1e-4 of their scale (f32 sums of L terms in another
+    order).  Two calls give equal bits (no atomics)."""
+    args = _gn_bwd_inputs(device, shape, act, dtype)
+    kw = dict(groups=shape[-1], act=act)
+    before = group_norm_act_backward.launches
+    out = group_norm_act_backward(*args, **kw)
+    again = group_norm_act_backward(*args, **kw)
+    torch.cuda.synchronize()
+    assert group_norm_act_backward.launches == before + 2
+    ref = group_norm_act_backward_reference(*args, **kw)
+    dx, dx_r = out[0].float(), ref[0].float()
+    assert out[0].dtype == dtype and out[0].shape == args[0].shape
+    scale_dx = dx_r.abs().max().item()
+    tol = 1e-5 * scale_dx if dtype == torch.float32 else _bf16_ulp(scale_dx)
+    assert (dx - dx_r).abs().max().item() <= tol
+    for got, want in zip(out[1:], ref[1:]):
+        assert got.shape == (shape[0], shape[3])
+        assert got.dtype == torch.float32
+        assert (got - want).abs().max().item() <= \
+            1e-4 * want.abs().max().item()
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+
+
+def test_group_norm_backward_kernel_rejects_what_it_does_not_take(device):
+    x, gy, scale, bias, mean, rstd = _gn_bwd_inputs(
+        device, (2, 4, 4, 8, 4), "none", torch.float32)
+    kw = dict(groups=4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        group_norm_act_backward(x.half(), gy.half(), scale, bias, mean,
+                                rstd, **kw)
+    with pytest.raises(ValueError, match="match x"):
+        group_norm_act_backward(x, gy.bfloat16(), scale, bias, mean, rstd,
+                                **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = x.transpose(1, 2).contiguous().transpose(1, 2)
+        group_norm_act_backward(t, gy, scale, bias, mean, rstd, **kw)
+    with pytest.raises(ValueError, match="mean"):
+        group_norm_act_backward(x, gy, scale, bias, mean[:1], rstd, **kw)
+    with pytest.raises(ValueError, match="scale"):
+        group_norm_act_backward(x, gy, scale.cpu(), bias, mean, rstd, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ops_stay_on_the_graph(device, dtype):
+    """Outputs of K1 and K3 carry a grad_fn when an input requires grad;
+    the gradients through the Functions match autograd through the plain
+    versions, and an upstream gradient in another layout is copied to
+    contiguous rows (counted) before K2."""
+    x, gy, scale, bias, _, _ = _gn_bwd_inputs(
+        device, (3, 6, 6, 40, 8), "silu", dtype)
+    xs = [x.clone().requires_grad_(), x.clone().requires_grad_()]
+    ps = [(scale.clone().requires_grad_(), bias.clone().requires_grad_())
+          for _ in range(2)]
+    w = torch.randn(x.shape[::-1][:2], device=device)  # (C, L)
+    k2, copies = (group_norm_act_backward.launches,
+                  group_norm_act_backward.grad_copies)
+    y = group_norm_act(xs[0], *ps[0], groups=8, act="silu")
+    assert y.grad_fn is not None
+    y_r = group_norm_act_reference(xs[1], *ps[1], groups=8, act="silu")[0]
+    for out, xx, (s, b) in ((y, xs[0], ps[0]), (y_r, xs[1], ps[1])):
+        # the transpose hands the Function a non-contiguous gradient
+        (out.float().transpose(1, 2) * w).sum().backward()
+    torch.cuda.synchronize()
+    assert group_norm_act_backward.launches == k2 + 1
+    assert group_norm_act_backward.grad_copies == copies + 1
+    for got, want in ((xs[0].grad, xs[1].grad), (ps[0][0].grad, ps[1][0].grad),
+                      (ps[0][1].grad, ps[1][1].grad)):
+        scale_g = want.float().abs().max().item()
+        tol = 1e-4 * scale_g if dtype == torch.float32 else \
+            2 * _bf16_ulp(scale_g)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+    qkv = torch.randn((2, 64, 3 * 40), device=device).to(dtype)
+    t = qkv.clone().requires_grad_()
+    out = spatial_self_attention(t[..., :40], t[..., 40:80], t[..., 80:],
+                                 0.15)
+    assert out.grad_fn is not None
+    g = torch.randn_like(out)
+    out.backward(g)
+    t_r = qkv.clone().requires_grad_()
+    spatial_self_attention_reference(t_r[..., :40], t_r[..., 40:80],
+                                     t_r[..., 80:], 0.15).backward(g)
+    scale_g = t_r.grad.float().abs().max().item()
+    tol = 1e-4 * scale_g if dtype == torch.float32 else \
+        2 * _bf16_ulp(scale_g)
+    assert (t.grad.float() - t_r.grad.float()).abs().max().item() <= tol
+
+
+def test_unet_backward_on_the_card_matches_the_cpu(device):
+    """A tiny f32 UNet: every parameter gradient on the card (K1, K2, K3)
+    within 1e-4 of the largest gradient of the same step on the CPU
+    (plain versions); TF32 is off."""
+    cfg = UNetConfig(image_size=8, in_channel=6, out_channel=6,
+                     inner_channel=8, norm_groups=4, res_blocks=1,
+                     attn_res=(4,), channel_mults=(1, 2))
+    torch.manual_seed(0)
+    state = UNet(cfg).state_dict()
+    rng = np.random.default_rng(0)
+    inputs = [torch.from_numpy(a) for a in (
+        rng.normal(size=(3, 8, 8, 6)).astype(np.float32),
+        rng.uniform(0, 6, 3).astype(np.float32),
+        rng.uniform(0, 1, 3).astype(np.float32))]
+    w = torch.from_numpy(rng.normal(size=(3, 8, 8, 6)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", device):
+        unet = UNet(cfg)
+        unet.load_state_dict(state)
+        unet.to(dev)
+        (unet(*(a.to(dev) for a in inputs)) * w.to(dev)).sum().backward()
+        grads.append({k: p.grad.cpu() for k, p in unet.named_parameters()})
+    gmax = max(g.abs().max().item() for g in grads[0].values())
+    for k, g in grads[0].items():
+        assert (grads[1][k] - g).abs().max().item() <= 1e-4 * gmax, k

@@ -42,6 +42,10 @@ _SIGNATURES = {
     # act, dtype, stream
     "vf_group_norm_act_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _F, _I, _I, _P],
+    # x, g, scale, bias, mean, rstd, dx, dscale_p, dbias_p, ws1, ws2, B, L,
+    # C, G, splits, act, dtype, stream
+    "vf_group_norm_act_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, B, S, C, batch_stride, row_stride, scale, dtype, stream
     "vf_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _F, _I, _P],
 }

@@ -15,11 +15,17 @@ and its memory is exactly the (B, H*W, C) rows that the GroupNorm and
 attention kernels read.
 
 Precision follows the JAX policy: parameters are f32 unless cast with
-:func:`cast_matmul_weights_`; conv/linear inputs and weights run in the
-compute dtype; the positional encoding is computed in f32 and cast;
-GroupNorm statistics are f32 with output in the compute dtype; attention
-returns f32 and is cast back before its output conv; the UNet output is
-f32.
+:func:`cast_matmul_weights_` (serving; training keeps f32 master
+parameters and casts them per call, as flax does); conv/linear inputs and
+weights run in the compute dtype; the positional encoding is computed in
+f32 and cast; GroupNorm statistics are f32 with output in the compute
+dtype; attention returns f32 and is cast back before its output conv; the
+UNet output is f32.
+
+A fresh UNet is initialised as flax initialises the JAX one: lecun-normal
+(truncated) conv and dense kernels, zero biases, GroupNorm scale one and
+bias zero.  Dropout and rematerialisation are not ported: a config that
+asks for either raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -65,6 +71,22 @@ def cast_matmul_weights_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module
 
 
+def _init_like_flax(module: nn.Module) -> None:
+    """Re-initialise conv/linear layers as flax's defaults do:
+    ``lecun_normal`` kernels (a normal of variance 1/fan_in truncated at
+    two standard deviations, rescaled by 1/0.8796 to keep that variance)
+    and zero biases.  GroupNorm parameters start at ones and zeros."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()  # in * kh * kw
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            with torch.no_grad():
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
+                                      b=2 * std)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
 class GroupNormAct(nn.Module):
     """GroupNorm (+ fused SiLU) on a channels_last NCHW tensor through
     :func:`group_norm_act` (kernel K1 on CUDA).  Parameters ``weight`` /
@@ -107,8 +129,8 @@ class FeatureWiseAffine(nn.Module):
 
 class Block(nn.Module):
     """GroupNorm -> SiLU -> (dropout) -> 3x3 conv, as ``block.0`` ..
-    ``block.3``; the norm and SiLU are one fused op, dropout is off
-    (serving is deterministic)."""
+    ``block.3``; the norm and SiLU are one fused op.  Dropout is not
+    ported (the UNet refuses a config with ``dropout > 0``)."""
 
     def __init__(self, dim: int, dim_out: int, groups: int = 32):
         super().__init__()
@@ -205,8 +227,15 @@ class UNet(nn.Module):
     angle (B,), noise_level (B,) -> (B, H, W, out_channel) f32 NHWC.
     """
 
-    def __init__(self, config: UNetConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: UNetConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
+        if config.dropout > 0:
+            raise NotImplementedError(
+                f"UNet dropout {config.dropout} is not ported yet")
+        if remat:
+            raise NotImplementedError(
+                "UNet rematerialisation (tpu.remat) is not ported yet")
         cfg = self.config = config
         self.dtype = dtype
         inner = cfg.inner_channel
@@ -253,6 +282,7 @@ class UNet(nn.Module):
                 now_res *= 2
         self.ups = nn.ModuleList(ups)
         self.final_conv = Block(pre_channel, cfg.out_channel, groups=groups)
+        _init_like_flax(self)
 
     def forward(self, x, angle, noise_level):
         inner = self.config.inner_channel

@@ -1,10 +1,18 @@
-"""ViewFusion composable diffusion: the reverse samplers served by the port
-(counterpart of ``viewfusion_tpu/models/view_fusion.py``).
+"""ViewFusion composable diffusion: the training objectives and the
+reverse samplers of the port (counterpart of
+``viewfusion_tpu/models/view_fusion.py``).
 
 One shared UNet predicts the noise of every (conditioning view, noisy
 target) pair; a per-pixel softmax over the views (masked to each
 sample's ``view_count``) composes the predictions.  The dense layout pads
-every sample to ``n_max`` views, as the JAX dense ``_denoise_views``.
+every sample to ``n_max`` views, as the JAX dense ``_denoise_views``; the
+packed layout (``loss_packed``) runs the UNet on exactly the valid
+(sample, view) rows and scatters its outputs back to the dense layout.
+
+Training draws t ~ U{1..T-1}, the position u of the continuous noise
+level between gamma_{t-1} and gamma_t, and the noise, in that order, from
+one ``torch.Generator`` on the model's device (the JAX loss splits one
+key three ways); ``sample_gammas=`` and ``noise=`` replace the draws.
 
 The reverse chain is a Python loop.  Per-step coefficients are computed
 on the host in float32 numpy from the schedule tables, with the same
@@ -93,6 +101,7 @@ class ViewFusion:
         self.weighting_train = weighting_train
         self.weighting_inference = weighting_inference
         self.unet_forwards = 0
+        self._gammas = {}  # the gamma table on each device it was used on
 
     @classmethod
     def from_config(cls, cfg: Config,
@@ -105,14 +114,31 @@ class ViewFusion:
         # the *train* schedule is active for inference too
         sched = DiffusionSchedule.create(
             cfg.diffusion.phases[cfg.diffusion.active_phase])
-        return cls(UNet(cfg.denoiser, dtype=dtype), sched,
+        return cls(UNet(cfg.denoiser, dtype=dtype, remat=cfg.train.remat),
+                   sched,
                    weighting_train=cfg.diffusion.weighting_train,
                    weighting_inference=cfg.diffusion.weighting_inference)
 
     # ------------------------------------------------------------------
-    def _denoise_views(self, y_cond, y_target, noise_level, angle):
-        """Dense per-view UNet pass: (B, N, ...) rows -> (B, N, H, W, out)."""
+    def _denoise_views(self, y_cond, y_target, noise_level, angle,
+                       packed_idx=None):
+        """Per-view UNet pass -> (B, N, H, W, out).
+
+        Dense: all B * N rows.  Packed (``packed_idx`` = (sample_idx,
+        view_idx), (R,) int64): rows gathered by (sample, view), outputs
+        scattered into zeros at ``sample_idx * N + view_idx``; untouched
+        slots stay 0 and are masked by :meth:`compose`."""
         b, n, h, w, _ = y_cond.shape
+        if packed_idx is not None:
+            sample_idx, view_idx = packed_idx
+            x = torch.cat([y_cond[sample_idx, view_idx],
+                           y_target[sample_idx].to(y_cond.dtype)], dim=-1)
+            out = self.unet(x, angle.reshape(-1)[sample_idx],
+                            noise_level[sample_idx])
+            self.unet_forwards += 1
+            dense = out.new_zeros((b * n,) + out.shape[1:])
+            dense = dense.index_copy(0, sample_idx * n + view_idx, out)
+            return dense.reshape(b, n, h, w, -1)
         y_rep = y_target[:, None].expand(b, n, h, w, y_target.shape[-1])
         x = torch.cat([y_cond, y_rep.to(y_cond.dtype)], dim=-1)
         level_rep = noise_level[:, None].expand(b, n).reshape(-1)
@@ -140,6 +166,68 @@ class ViewFusion:
         noise_hat = torch.where(m, noise_all, 0.0).sum(dim=1) / counts
         return noise_hat, None, None
 
+    # ------------------------------------------------------------------
+    def q_sample(self, y_0, sample_gammas, noise):
+        """sqrt(g) * y_0 + sqrt(1 - g) * noise; ``sample_gammas``
+        broadcasts against y_0 ((B, 1, 1, 1) or scalar)."""
+        return (torch.sqrt(sample_gammas) * y_0
+                + torch.sqrt(1.0 - sample_gammas) * noise)
+
+    def _gamma_table(self, device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._gammas:
+            self._gammas[key] = torch.as_tensor(self.schedule.gammas,
+                                                device=device)
+        return self._gammas[key]
+
+    def _noisy_target(self, y_0, noise, sample_gammas, generator):
+        """(noise, sample_gammas, y_noisy) of a training step: gamma
+        uniform in [gamma_{t-1}, gamma_t) per sample, t ~ U{1..T-1}
+        (the WaveGrad continuous noise level)."""
+        b, dev = y_0.shape[0], y_0.device
+        if sample_gammas is None:
+            t = torch.randint(1, self.schedule.num_timesteps, (b,),
+                              generator=generator, device=dev)
+            table = self._gamma_table(dev)
+            g1, g2 = table[t - 1], table[t]
+            u = torch.rand((b,), generator=generator, device=dev)
+            sample_gammas = (g2 - g1) * u + g1
+        if noise is None:
+            noise = torch.randn(y_0.shape, generator=generator, device=dev)
+        y_noisy = self.q_sample(y_0, sample_gammas[:, None, None, None],
+                                noise)
+        return noise, sample_gammas, y_noisy
+
+    def _mse(self, unet_out, noise, view_count):
+        mask = view_mask(view_count, unet_out.shape[1])
+        noise_hat = self.compose(unet_out, mask, self.weighting_train)[0]
+        return torch.mean((noise - noise_hat) ** 2)
+
+    def loss(self, y_0, y_cond, view_count, angle, noise=None,
+             sample_gammas=None, generator: Optional[torch.Generator] = None):
+        """MSE between the true noise and the composed prediction, dense
+        layout (JAX ``loss``).  y_0 (B, H, W, 3), y_cond (B, N, H, W, Cc),
+        view_count and angle (B,); ``noise`` (B, H, W, 3) and
+        ``sample_gammas`` (B,) replace the draws."""
+        noise, gammas, y_noisy = self._noisy_target(y_0, noise,
+                                                    sample_gammas, generator)
+        out = self._denoise_views(y_cond, y_noisy, gammas, angle)
+        return self._mse(out, noise, view_count)
+
+    def loss_packed(self, y_0, y_cond, view_count, angle, sample_idx,
+                    view_idx, noise=None, sample_gammas=None,
+                    generator: Optional[torch.Generator] = None):
+        """:meth:`loss` with the UNet on exactly the sum(view_count) valid
+        rows (JAX ``loss_packed``).  ``sample_idx``/``view_idx`` (R,)
+        enumerate the valid (sample, view < view_count) pairs
+        (``training.trainer.packed_indices``)."""
+        noise, gammas, y_noisy = self._noisy_target(y_0, noise,
+                                                    sample_gammas, generator)
+        out = self._denoise_views(y_cond, y_noisy, gammas, angle,
+                                  packed_idx=(sample_idx, view_idx))
+        return self._mse(out, noise, view_count)
+
+    # ------------------------------------------------------------------
     def _eps(self, y_cond, y, t, mask, angle):
         b = y.shape[0]
         level = torch.full((b,), float(self.schedule.gammas[t]),

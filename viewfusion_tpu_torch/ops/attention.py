@@ -1,26 +1,48 @@
-"""Dense spatial self-attention forward: CUDA kernel K3 and its plain
-version.
+"""Dense spatial self-attention: forward kernel K3, its plain version and
+the closed-form backward.
 
 ``spatial_self_attention(q, k, v, scale)`` is the counterpart of
 ``viewfusion_tpu.ops.attention.spatial_self_attention``: single-head
 ``softmax(q k^T * scale) v`` over (B, S, C) tokens with f32 math and an
-f32 result.  On CUDA tensors it launches ``csrc/attention.cu``; on CPU
-tensors it runs :func:`spatial_self_attention_reference`.
+f32 result.  On CUDA tensors the forward launches ``csrc/attention.cu``;
+on CPU tensors it runs :func:`spatial_self_attention_reference`.  It is
+differentiable on both devices: the backward is the closed-form gradient
+in plain PyTorch with S and P recomputed in f32, as the JAX op's custom
+VJP (``_attn_bwd``) leaves it to XLA.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from viewfusion_tpu_torch import _native
 
-__all__ = ["spatial_self_attention", "spatial_self_attention_reference"]
+__all__ = ["spatial_self_attention", "spatial_self_attention_reference",
+           "spatial_self_attention_backward"]
+
+
+def _probs(qf, kf, scale):
+    return torch.softmax(torch.matmul(qf, kf.transpose(1, 2)) * scale, dim=-1)
 
 
 def spatial_self_attention_reference(q, k, v, scale):
     """Plain PyTorch attention in f32 (softmax over the key axis)."""
-    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
-    return torch.matmul(torch.softmax(s, dim=-1), v.float())
+    return torch.matmul(_probs(q.float(), k.float(), scale), v.float())
+
+
+def spatial_self_attention_backward(q, k, v, g, scale):
+    """Gradients (dq, dk, dv) of the attention for the f32 upstream
+    gradient ``g`` (B, S, C), each in its input's dtype; P is recomputed
+    in f32 rather than kept from the forward."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = _probs(qf, kf, scale)
+    dv = torch.matmul(p.transpose(1, 2), gf)
+    dp = torch.matmul(gf, vf.transpose(1, 2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(1, 2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _launch(q, k, v, scale):
@@ -46,21 +68,45 @@ def _launch(q, k, v, scale):
     return out
 
 
+def _forward(q, k, v, scale):
+    if q.is_cuda:
+        return _launch(q, k, v, scale)
+    if q.device.type == "cpu":
+        return spatial_self_attention_reference(q, k, v, scale)
+    raise ValueError(f"spatial_self_attention: unsupported device {q.device}")
+
+
+class _Attention(torch.autograd.Function):
+    """K3 forward (plain version on the CPU), closed-form backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*spatial_self_attention_backward(q, k, v, g, ctx.scale),
+                None)
+
+
 def spatial_self_attention(q, k, v, scale):
     """Dense self-attention over (B, S, C) tokens, f32 result.
 
     q, k and v share shape, dtype (bf16 or f32) and strides; rows may be
     strided (column slices of one (B, S, 3C) qkv buffer) but channels
     must be contiguous.  CUDA tensors launch kernel K3; CPU tensors run
-    the plain version."""
+    the plain version.  Where autograd records, the call goes through an
+    autograd Function with the closed-form backward."""
     if q.dim() != 3:
         raise ValueError(
             f"q, k, v must be (B, S, C), got shape {tuple(q.shape)}")
-    if q.is_cuda:
-        return _launch(q, k, v, scale)
-    if q.device.type == "cpu":
-        return spatial_self_attention_reference(q, k, v, scale)
-    raise ValueError(f"spatial_self_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale)
 
 
 spatial_self_attention.launches = 0

@@ -32,7 +32,21 @@ Phases (any failure raises and exits non-zero without the final line):
      once per GroupNorm site, K3 once per attention site); ms per step,
      peak memory and one profiled step;
  11. two tiny f32 train steps on the card against the same steps on the
-     CPU.
+     CPU;
+ 12. K4, the 3x3 conv weight gradient, at every stride-1 3x3 conv site of
+     the paper UNet at R = 98 rows (bf16 at every site, f32 at the
+     largest and at a Cin = 6 one) against its plain version, with times,
+     the bound and weight-only cuDNN (aten.convolution_backward) as the
+     library yardstick, and the step's conv work recomputed from hooks;
+ 13. the conv3x3 op: one full-width bf16 packed training step with every
+     stride-1 3x3 conv routed through conv3x3(impl="kernel") against the
+     same step unpatched: the same loss, exactly one K4 launch per conv;
+ 14. ancestral sampling, the third main path: the Trainer at the paper
+     config evaluates a batch of 8 (28 packed rows) with the reference's
+     T = 2000 step chain (tpu.sampler ddpm) in 4 segments; the counters
+     must rise by exactly the per-forward site counts times T;
+ 15. a tiny f32 ancestral chain with frame capture on the card against
+     the CPU, and a segmented chain on the card against one call.
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 
@@ -47,7 +61,14 @@ of their scale (f32 sums of L terms in another order), two calls equal
 bit for bit.  The bf16 training step: loss within 1e-2 relative and the
 gradient (all parameters as one vector) within 5e-2 relative L2 (the
 forward's 1e-2 flips, carried back through the same layers).  The tiny
-f32 train steps: losses, gradients, parameters and EMA within 1e-4.
+f32 train steps: losses, gradients, parameters and EMA within 1e-4.  K4:
+within 1e-5 of the result's scale times sqrt(R*H*W / 4096) (f32 sums of
+exact products in another order), two calls equal bit for bit.  The
+conv3x3 step: the loss equal bit for bit (the same forward), each conv
+weight gradient within 1e-2 relative L2 of cuDNN's (rounded to bf16, one
+ulp is 3.9e-3), all gradients within 5e-2.  The tiny ancestral chain:
+samples, frames, logits and weights within 1e-4; segmented equal to one
+call bit for bit.
 """
 
 from __future__ import annotations
@@ -70,13 +91,16 @@ from viewfusion_tpu_torch.models.unet import GroupNormAct, SelfAttention, UNet
 from viewfusion_tpu_torch.models.view_fusion import ViewFusion
 from viewfusion_tpu_torch.ops.attention import (
     spatial_self_attention, spatial_self_attention_reference)
+from viewfusion_tpu_torch.ops.conv_wgrad import (conv3x3, conv3x3_wgrad,
+                                                 conv3x3_wgrad_reference)
 from viewfusion_tpu_torch.ops.groupnorm import (
     group_norm_act, group_norm_act_backward,
     group_norm_act_backward_reference, group_norm_act_reference)
 from viewfusion_tpu_torch.serving import ViewFusionService
 from viewfusion_tpu_torch.training.trainer import (Trainer,
                                                    global_packed_counts,
-                                                   norm_img)
+                                                   norm_img, packed_indices,
+                                                   salted_generator)
 
 # configs/small-tpu-4.yaml, the fields the serving path reads (kept in
 # code: the card's machine may have no PyYAML)
@@ -110,6 +134,10 @@ TRAIN_BATCH = 28                # configs/small-tpu-1.yaml
 TRAIN_ROWS = 98                 # sum of stratified_count_multiset(28, 6)
 TRAIN_STEPS = 6                 # Trainer steps; the first is timed apart
 DDIM_STEPS, DPM_STEPS = 50, 20
+# the ancestral eval batch: stratified view counts of a batch of 8 (28
+# packed rows), the active schedule's T = 2000 steps in segments
+ANCESTRAL_COUNTS = (1, 2, 3, 4, 5, 6, 1, 6)
+ANCESTRAL_SEGMENTS = 4
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 # peak rate by input type: bf16 on the tensor cores (dense); f32 outside
 # them (the f32 math of these kernels)
@@ -571,10 +599,11 @@ def check_group_norm_backward(gn_sites, groups: int, device) -> dict:
     return tot
 
 
-def check_train_step(device) -> None:
-    """One full-width bf16 packed training step at small-tpu-1 (loss and
-    every parameter gradient) through the kernels, against the same step
-    with the plain versions, on the same batch and draws."""
+def packed_train_step(device):
+    """The paper model at small-tpu-1 from seeded weights, and a function
+    that takes one full-width bf16 packed training step on a seeded batch
+    with fed draws: returns (model, names, step); step() gives the loss
+    and every parameter gradient."""
     cfg = train_config()
     torch.manual_seed(SEED)
     model = ViewFusion.from_config(cfg)
@@ -594,6 +623,14 @@ def check_train_step(device) -> None:
         loss = model.loss_packed(*args, noise=noise, sample_gammas=gammas)
         return loss.detach(), torch.autograd.grad(loss, params)
 
+    return model, names, step
+
+
+def check_train_step(device) -> None:
+    """One full-width bf16 packed training step at small-tpu-1 (loss and
+    every parameter gradient) through the kernels, against the same step
+    with the plain versions, on the same batch and draws."""
+    _, names, step = packed_train_step(device)
     loss_k, grads_k = step()
     torch.cuda.synchronize()
     restore = _plain_unet_ops()
@@ -720,6 +757,286 @@ def check_train_against_cpu(device) -> None:
         raise AssertionError("card train steps disagree with the CPU")
 
 
+def is_conv3x3(m) -> bool:
+    """A stride-1 SAME 3x3 conv of the UNet: the convs K4 can serve."""
+    return (isinstance(m, unet_module.Conv2d) and m.kernel_size == (3, 3)
+            and m.stride == (1, 1) and m.padding == (1, 1))
+
+
+def conv_sites(unet: UNet, rows: int, device) -> Counter:
+    """(H, W, Cin, Cout) of every stride-1 3x3 conv of one forward at
+    ``rows`` rows, with their counts, read by hooks on the model."""
+    found = Counter()
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: found.update([(a[0].shape[2], a[0].shape[3],
+                                    a[0].shape[1], m.out_channels)]))
+        for m in unet.modules() if is_conv3x3(m)]
+    with torch.inference_mode():
+        unet(*unet_inputs(rows, unet.config, device))
+    for h in hooks:
+        h.remove()
+    return found
+
+
+def check_conv_wgrad(sites, device) -> dict:
+    """K4 against its plain version at every stride-1 3x3 conv site of the
+    paper UNet at the training batch (R = 98 rows): bf16 at every site
+    (timed), f32 at the largest site and at a Cin = 6 one.  Per-step
+    totals weight each site by its count in one backward."""
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_bytes_ms", "max_abs_err"), 0.0)
+    ops = lambda s: 2 * 9 * TRAIN_ROWS * s[0] * s[1] * s[2] * s[3]  # noqa
+    big = max(sites, key=ops)
+    ragged = min(sites, key=lambda s: s[2])
+    cases = [(site, torch.bfloat16, n) for site, n in sorted(sites.items())]
+    cases += [(big, torch.float32, 0), (ragged, torch.float32, 0)]
+    step_ops = step_bytes = 0.0
+    for (h, w, cin, cout), dtype, count in cases:
+        x = torch.randn((TRAIN_ROWS, h, w, cin), generator=g,
+                        device=device).to(dtype)
+        gy = torch.randn((TRAIN_ROWS, h, w, cout), generator=g,
+                         device=device).to(dtype)
+        out = conv3x3_wgrad(x, gy)
+        again = conv3x3_wgrad(x, gy)
+        ref = conv3x3_wgrad_reference(x, gy)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        tol = 1e-5 * max(1.0, (TRAIN_ROWS * h * w / 4096) ** 0.5) * scale
+        name = f"K4 H={h} W={w} Cin={cin} Cout={cout} {str(dtype)[6:]} x{count}"
+        if not err <= tol:
+            raise AssertionError(f"{name}: err {err} > {tol}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name}: two calls differ")
+        if not count:
+            say(f"{name}: err {err:.3g} (tol {tol:.3g}), repeatable")
+            continue
+        x4, g4 = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+        w4 = torch.empty((cout, cin, 3, 3), device=device, dtype=dtype)
+
+        def library():
+            return torch.ops.aten.convolution_backward(
+                g4, x4, w4, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [False, True, False])[1]
+
+        ms = device_ms(lambda: conv3x3_wgrad(x, gy))
+        eager_ms = call_ms(lambda: conv3x3_wgrad(x, gy))
+        plain_ms = device_ms(lambda: conv3x3_wgrad_reference(x, gy))
+        lib_ms = device_ms(library)
+        lib_err = (library().float().permute(2, 3, 1, 0) - ref).abs().max()
+        nbytes = (x.numel() + gy.numel()) * x.element_size() + ref.numel() * 4
+        bms, by = bound_ms(nbytes, ops((h, w, cin, cout)), dtype)
+        step_ops += count * ops((h, w, cin, cout))
+        step_bytes += count * nbytes
+        say(f"{name}: err {err:.3g} (tol {tol:.3g}) kernel {ms * 1e3:.1f} us "
+            f"(eager call {eager_ms * 1e3:.1f} us) plain "
+            f"{plain_ms * 1e3:.1f} us library {lib_ms * 1e3:.1f} us (bf16 "
+            f"dW, max abs diff {lib_err.item():.3g} of {scale:.3g}) bound "
+            f"{bms * 1e3:.1f} us ({by}) = {bms / ms:.0%} of bound")
+        add_site(tot, count, ms, plain_ms, lib_ms, bms, nbytes, err)
+    say(f"K4 work per training step at {TRAIN_ROWS} rows: "
+        f"{sum(sites.values())} conv sites ({len(sites)} distinct), "
+        f"{step_ops / 1e12:.3f} TFLOP = {step_ops / 989e12 * 1e3:.3f} ms at "
+        f"989 TF/s; {step_bytes / 1e9:.3f} GB = "
+        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
+    return tot
+
+
+def route_convs(unet: UNet, impl: str):
+    """Route every stride-1 3x3 conv of ``unet`` through ``conv3x3`` (the
+    same F.conv2d forward; the weight gradient by ``impl``); returns the
+    patched modules and the restore function."""
+    convs = [m for m in unet.modules() if is_conv3x3(m)]
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return conv3x3(x, self.weight.to(x.dtype), b, impl=impl)
+
+    for m in convs:
+        m.forward = forward.__get__(m)
+
+    def restore():
+        for m in convs:
+            del m.forward
+    return convs, restore
+
+
+def check_conv3x3_step(device, n_sites: int) -> int:
+    """One full-width bf16 packed training step with every stride-1 3x3
+    conv routed through conv3x3(impl="kernel") against the same step
+    unpatched (cuDNN's weight gradients): the same loss bit for bit, K4
+    launched once per conv, each conv weight gradient within 1e-2
+    relative L2 (the reference is rounded to bf16: one ulp is 2^-8 =
+    3.9e-3 relative), all gradients within phase 9's 5e-2.  Returns the
+    launches."""
+    model, names, step = packed_train_step(device)
+    loss_u, grads_u = step()
+    convs, restore = route_convs(model.unet, "kernel")
+    conv3x3_wgrad.launches = 0
+    conv3x3.input_copies = conv3x3.grad_copies = 0
+    try:
+        loss_k, grads_k = step()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = conv3x3_wgrad.launches
+    if not (len(convs) == n_sites and launches == n_sites):
+        raise AssertionError(f"conv3x3 step: {launches} K4 launches for "
+                             f"{len(convs)} convs, {n_sites} sites")
+    if not torch.equal(loss_k, loss_u):
+        raise AssertionError(f"conv3x3 step: loss {loss_k.item()} != "
+                             f"{loss_u.item()}")
+    index = {n: i for i, n in enumerate(names)}
+    conv_names = {f"{n}.weight" for n, m in model.unet.named_modules()
+                  if m in convs}
+    rels = {n: ((grads_k[index[n]].float() - grads_u[index[n]].float()).norm()
+                / grads_u[index[n]].float().norm()).item()
+            for n in conv_names}
+    worst = max(rels, key=rels.get)
+    flat = [torch.cat([t.float().flatten() for t in gs])
+            for gs in (grads_k, grads_u)]
+    rel = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
+    say(f"bf16 train step at {TRAIN_ROWS} rows with {len(convs)} convs "
+        f"through conv3x3(impl='kernel'): loss equal ({loss_k.item():.6f}), "
+        f"{launches} K4 launches, conv weight gradients against cuDNN's: "
+        f"worst rel L2 {rels[worst]:.3g} ({worst}), median "
+        f"{sorted(rels.values())[len(rels) // 2]:.3g}; all gradients rel L2 "
+        f"{rel:.3g}; {conv3x3.input_copies} inputs and "
+        f"{conv3x3.grad_copies} upstream gradients copied to NHWC rows")
+    if not (rels[worst] <= 1e-2 and rel <= 5e-2
+            and torch.isfinite(flat[0]).all()):
+        raise AssertionError(f"conv3x3 step: conv gradient rel L2 "
+                             f"{rels[worst]}, all gradients {rel}")
+    return launches
+
+
+def run_ancestral(device, k1_sites: int, k3_sites: int) -> dict:
+    """The reference's ancestral chain, the third main path: the Trainer at
+    the paper config (seeded weights) evaluates a batch of 8 at the
+    stratified view counts (R = 28 packed rows) with tpu.sampler ddpm,
+    the T = 2000 steps of the active schedule in ANCESTRAL_SEGMENTS
+    segments; counters must rise by exactly the site counts per step."""
+    cfg = train_config(chain_segments=ANCESTRAL_SEGMENTS)
+    trainer = Trainer(cfg, device=device, seed=SEED)
+    model = trainer._infer_model
+    T = model.schedule.num_timesteps
+    rng = np.random.default_rng(SEED + 10)
+    counts = np.array(ANCESTRAL_COUNTS, np.int32)
+    n, hw = cfg.data.max_views, cfg.unet.image_size
+    si, vi = packed_indices(counts)
+    batch = {"cond": rng.integers(0, 256, (len(counts), n, hw, hw, 3),
+                                  dtype=np.uint8),
+             "view_count": counts, "sample_idx": si, "view_idx": vi,
+             "angle": rng.uniform(0, 2 * np.pi, len(counts)).astype(
+                 np.float32)}
+    gen = salted_generator(cfg.train.seed + 17, 0, device)
+    torch.cuda.synchronize()
+    group_norm_act.launches = spatial_self_attention.launches = 0
+    model.unet_forwards = 0
+    t0 = time.perf_counter()
+    out = trainer._eval_samples(gen, batch)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {"k1": group_norm_act.launches,
+                "k3": spatial_self_attention.launches}
+    steps = model.unet_forwards
+    if steps != T or launches != {"k1": k1_sites * T, "k3": k3_sites * T}:
+        raise AssertionError(f"ancestral launch counters {launches} over "
+                             f"{steps} steps != sites x {T}")
+    if not (out.shape == (len(counts), hw, hw, 3)
+            and torch.isfinite(out).all()):
+        raise AssertionError(f"bad ancestral output {tuple(out.shape)}")
+    say(f"ancestral chain (ddpm, T={T}, {ANCESTRAL_SEGMENTS} segments), "
+        f"batch of {len(counts)} at view counts {ANCESTRAL_COUNTS} "
+        f"({len(si)} packed rows), bf16: {sec:.2f} s per batch = "
+        f"{sec / T * 1e3:.2f} ms per step on {card_line()}; samples in "
+        f"[{out.min().item():.3f}, {out.max().item():.3f}]")
+    say(f"launches on the ancestral path: K1 {launches['k1']}, K3 "
+        f"{launches['k3']} over {steps} steps")
+    profile_chain(trainer, batch)
+    return launches
+
+
+def profile_chain(trainer: Trainer, batch: dict, steps: int = 10) -> None:
+    """Device time of ``steps`` ancestral steps at the eval batch against
+    their wall time (the rest is the device waiting on the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, put = trainer._infer_model, trainer._put
+    cond = norm_img(put(batch["cond"]))
+    vc, angle = put(batch["view_count"]).long(), put(batch["angle"])
+    idx = (put(batch["sample_idx"]).long(), put(batch["view_idx"]).long())
+    gen = salted_generator(SEED, 1, trainer.device)
+    carry = model.init_chain(cond, vc, trainer.config.train.sample_num,
+                             capture_aux=False, generator=gen)
+    segment = lambda ts: model.chain_segment(  # noqa: E731
+        carry, ts, cond, vc, angle, trainer.config.train.sample_num, idx)
+    segment(range(2 * steps - 1, steps - 1, -1))  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        segment(range(steps - 1, -1, -1))
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = report_profile(prof, f"{steps} ancestral steps at "
+                          f"{len(idx[0])} rows", wall)
+    say(f"ancestral step: device busy {busy / steps:.2f} ms of "
+        f"{wall / steps:.2f} ms wall (profiled)")
+
+
+def check_ancestral_against_cpu(device) -> None:
+    """A tiny f32 ancestral chain with frame, logit and weight capture on
+    the card against the same chain on the CPU (fed y_T and draws), and a
+    3-segment chain on the card against one generate() call on the card
+    (generator draws), bit for bit."""
+    raw = json.loads(json.dumps(PAPER_CONFIG))
+    raw["model"]["denoise_net_params"] = TINY_UNET
+    raw["model"]["view_fusion_params"]["beta_schedule"]["train"][
+        "num_timesteps"] = 20
+    raw["tpu"]["compute_dtype"] = "float32"
+    cfg = Config.from_dict(raw)
+    rng = np.random.default_rng(SEED + 11)
+    b, n, hw, T, sample_num = 3, 3, 8, 20, 4
+    y_cond = torch.from_numpy(rng.uniform(0, 1, (b, n, hw, hw, 3)).astype(
+        np.float32))
+    counts = torch.tensor([1, 3, 2])
+    angle = torch.from_numpy(rng.uniform(0, 6, b).astype(np.float32))
+    y_t = torch.from_numpy(rng.normal(size=(b, hw, hw, 3)).astype(np.float32))
+    noise = [torch.from_numpy(rng.normal(size=(b, hw, hw, 3)).astype(
+        np.float32)) for _ in range(T)]
+    outs, models = [], []
+    for dev in ("cpu", device):
+        torch.manual_seed(SEED)
+        model = ViewFusion.from_config(cfg)
+        model.unet.to(dev).eval()
+        models.append(model)
+        args = (y_cond.to(dev), counts.to(dev), angle.to(dev))
+        outs.append(model.generate(*args, y_t=y_t.to(dev),
+                                   sample_num=sample_num, noise=noise))
+    errs = {name: (a.cpu() - b_.cpu()).abs().max().item()
+            for name, a, b_ in zip(outs[0]._fields, outs[1], outs[0])}
+    say("tiny f32 ancestral chain with capture, card vs CPU: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    if not max(errs.values()) <= 1e-4:
+        raise AssertionError(f"card ancestral chain disagrees: {errs}")
+    model = models[1]
+    args = (y_cond.to(device), counts.to(device), angle.to(device))
+    gen = lambda: torch.Generator(device=device).manual_seed(SEED)  # noqa
+    one = model.generate(*args, sample_num=sample_num, generator=gen())
+    carry = model.init_chain(args[0], args[1], sample_num, generator=gen())
+    for hi, lo in ((20, 13), (13, 6), (6, 0)):
+        carry = model.chain_segment(carry, range(hi - 1, lo - 1, -1), *args,
+                                    sample_num=sample_num)
+    seg = model.finalize_chain(carry)
+    if not all(torch.equal(a, b_) for a, b_ in zip(one, seg)):
+        raise AssertionError("segmented chain on the card differs from one "
+                             "generate() call")
+    say("tiny 3-segment ancestral chain on the card equals one generate() "
+        "call bit for bit")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
@@ -749,6 +1066,10 @@ def main() -> int:
     say(f"paper UNet sites per forward: {k1_calls} GroupNorm "
         f"({len(gn_sites)} distinct), {k3_calls} attention "
         f"({len(attn_sites)} distinct)")
+    w_sites = conv_sites(unet, TRAIN_ROWS, device)
+    k4_calls = sum(w_sites.values())
+    say(f"paper UNet stride-1 3x3 convs per forward: {k4_calls} "
+        f"({len(w_sites)} distinct (H, W, Cin, Cout))")
     k1 = check_group_norm(gn_sites, cfg.unet.norm_groups, device)
     k3 = check_attention(attn_sites, device)
 
@@ -819,6 +1140,22 @@ def main() -> int:
 
     # 11. tiny f32 train steps on the card against the CPU
     check_train_against_cpu(device)
+    torch.cuda.empty_cache()
+
+    # 12. K4 at the paper UNet's conv sites at the training batch
+    k4 = check_conv_wgrad(w_sites, device)
+    torch.cuda.empty_cache()
+
+    # 13. the conv3x3 op: a full-width training step through K4
+    conv_launches = check_conv3x3_step(device, k4_calls)
+    torch.cuda.empty_cache()
+
+    # 14. ancestral sampling: the third main path
+    anc_launches = run_ancestral(device, k1_calls, k3_calls)
+    torch.cuda.empty_cache()
+
+    # 15. tiny f32 ancestral chain on the card against the CPU
+    check_ancestral_against_cpu(device)
 
     kernels = []
     for name, route_src, replaces, tot, key, per in (
@@ -835,6 +1172,8 @@ def main() -> int:
              f"one UNet forward at {ROWS} rows")):
         by_path = {"serving": launches.get(key, 0),
                    "training": train_launches[key]}
+        if key in anc_launches:
+            by_path["ancestral"] = anc_launches[key]
         kernels.append({
             "name": name, "route": "cuda", "source": route_src,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -845,6 +1184,19 @@ def main() -> int:
                          else "operations"),
             "library_ms": tot["library_ms"], "per": per,
         })
+    kernels.append({
+        "name": "conv3x3_wgrad", "route": "cuda",
+        "source": "viewfusion_tpu_torch/csrc/conv_wgrad.cu",
+        "replaces": "viewfusion_tpu/ops/conv_wgrad.py:47",
+        "launches": conv_launches,
+        "launches_by_path": {"conv3x3": conv_launches},
+        "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+        "bound_by": ("bytes" if k4["bound_bytes_ms"] >= k4["bound_ms"]
+                     else "operations"),
+        "library_ms": k4["library_ms"],
+        "per": f"one training step's {k4_calls} conv weight gradients at "
+               f"{TRAIN_ROWS} rows"})
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ Shapes include ragged ones (channels per group 3 and 5, odd spatial
 sizes, token counts that are not a multiple of the 32-token tiles,
 channels that are not a multiple of 16) and the paper UNet's widths.
 The backward tests cover kernel K2 and the autograd Functions on the
-card, and a tiny UNet's gradients on the card against the CPU.
+card, and a tiny UNet's gradients on the card against the CPU; the conv
+weight-gradient tests cover kernel K4 (ragged channels, 5 x 7 images,
+bf16 and f32) and the ``conv3x3`` op.
 """
 
 import numpy as np
@@ -21,6 +23,8 @@ from viewfusion_tpu_torch.config import UNetConfig
 from viewfusion_tpu_torch.models.unet import UNet
 from viewfusion_tpu_torch.ops.attention import (
     spatial_self_attention, spatial_self_attention_reference)
+from viewfusion_tpu_torch.ops.conv_wgrad import (conv3x3, conv3x3_wgrad,
+                                                 conv3x3_wgrad_reference)
 from viewfusion_tpu_torch.ops.groupnorm import (
     group_norm_act, group_norm_act_backward,
     group_norm_act_backward_reference, group_norm_act_reference)
@@ -264,3 +268,84 @@ def test_unet_backward_on_the_card_matches_the_cpu(device):
     gmax = max(g.abs().max().item() for g in grads[0].values())
     for k, g in grads[0].items():
         assert (grads[1][k] - g).abs().max().item() <= 1e-4 * gmax, k
+
+
+# (B, H, W, Cin, Cout): ragged channels (6, 3, 5), odd images (5 x 7),
+# widths over the 64-pixel chunk, several output tiles, and two paper
+# sites at R = 98 (the largest 64 px one and an 8 px one)
+WGRAD_SHAPES = [(2, 8, 8, 4, 8), (3, 5, 7, 6, 4), (2, 4, 4, 3, 5),
+                (2, 16, 16, 6, 64), (2, 16, 16, 64, 6), (1, 9, 70, 40, 24),
+                (4, 32, 32, 128, 96), (98, 64, 64, 192, 64),
+                (98, 8, 8, 640, 320)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WGRAD_SHAPES)
+def test_conv_wgrad_kernel_matches_plain(device, shape, dtype):
+    """K4 against its plain version on the same inputs: both widen to f32
+    and sum in f32 (bf16 products are exact), in another order: within
+    1e-5 of the result's scale, times sqrt(B*H*W / 4096) above 4096
+    summed pixels.
+    Two calls give equal bits (no atomics), one launch each."""
+    b, h, w, cin, cout = shape
+    gen = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn((b, h, w, cin), generator=gen, device=device).to(dtype)
+    g = torch.randn((b, h, w, cout), generator=gen, device=device).to(dtype)
+    before = conv3x3_wgrad.launches
+    out = conv3x3_wgrad(x, g)
+    again = conv3x3_wgrad(x, g)
+    torch.cuda.synchronize()
+    assert conv3x3_wgrad.launches == before + 2
+    ref = conv3x3_wgrad_reference(x, g)
+    assert out.dtype == torch.float32 and out.shape == (3, 3, cin, cout)
+    rel = 1e-5 * max(1.0, (b * h * w / 4096) ** 0.5)
+    assert (out - ref).abs().max().item() <= rel * ref.abs().max().item()
+    assert torch.equal(out, again)
+
+
+def test_conv3x3_op_on_the_card(device):
+    """The op's output carries a grad_fn; one backward launches K4 once
+    (a channels_last input and gradient need no copy), and its gradients
+    match autograd of F.conv2d; a CPU tensor never launches."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn((3, 16, 10, 12), generator=gen, device=device)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.randn((24, 16, 3, 3), generator=gen, device=device) * 0.1
+    bias = torch.randn((24,), generator=gen, device=device)
+    up = torch.randn((3, 24, 10, 12), generator=gen, device=device)
+    up = up.contiguous(memory_format=torch.channels_last)
+    grads = []
+    for fn in (lambda *a: conv3x3(*a, impl="kernel"),
+               lambda *a: torch.nn.functional.conv2d(*a, padding=1)):
+        ts = [t.clone().requires_grad_() for t in (x, w, bias)]
+        out = fn(*ts)
+        assert out.grad_fn is not None
+        before = conv3x3_wgrad.launches
+        copies = conv3x3.input_copies, conv3x3.grad_copies
+        (out * up).sum().backward()
+        torch.cuda.synchronize()
+        grads.append([t.grad for t in ts])
+    assert conv3x3_wgrad.launches == before  # the F.conv2d run
+    for got, want in zip(*grads):
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-4 * scale
+    ts = [t.clone().requires_grad_() for t in (x, w, bias)]
+    before = conv3x3_wgrad.launches
+    (conv3x3(*ts, impl="kernel") * up).sum().backward()
+    torch.cuda.synchronize()
+    assert conv3x3_wgrad.launches == before + 1
+    assert (conv3x3.input_copies, conv3x3.grad_copies) == copies
+    cpu = [t.detach().cpu().requires_grad_() for t in (x, w, bias)]
+    (conv3x3(*cpu, impl="kernel") * up.cpu()).sum().backward()
+    assert conv3x3_wgrad.launches == before + 1
+
+
+def test_conv_wgrad_kernel_rejects_what_it_does_not_take(device):
+    x = torch.zeros((2, 4, 4, 8), device=device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        conv3x3_wgrad(x.half(), x.half())
+    with pytest.raises(ValueError, match="match x"):
+        conv3x3_wgrad(x, x.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        t = x.permute(0, 2, 1, 3)
+        conv3x3_wgrad(t, t)

@@ -48,6 +48,10 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, B, S, C, batch_stride, row_stride, scale, dtype, stream
     "vf_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _F, _I, _P],
+    # B, H, W, Cin, Cout, dtype, sm_count -> splits (0: shape refused)
+    "vf_conv3x3_wgrad_splits": [_I, _I, _I, _I, _I, _I, _I],
+    # x, g, dw, ws, B, H, W, Cin, Cout, splits, dtype, stream
+    "vf_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

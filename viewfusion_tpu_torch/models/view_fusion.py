@@ -14,12 +14,15 @@ level between gamma_{t-1} and gamma_t, and the noise, in that order, from
 one ``torch.Generator`` on the model's device (the JAX loss splits one
 key three ways); ``sample_gammas=`` and ``noise=`` replace the draws.
 
-The reverse chain is a Python loop.  Per-step coefficients are computed
-on the host in float32 numpy from the schedule tables, with the same
-expressions as the JAX samplers, so no step waits on the device.  Noise
-comes from a ``torch.Generator`` on the model's device; ``noise=`` feeds
-explicit per-step draws instead (tests feed the draws the JAX chain
-makes).
+The reverse chains are Python loops: the reference's T-step ancestral
+chain (``generate``, in segments through ``init_chain`` /
+``chain_segment`` / ``finalize_chain``), DDIM and DPM-Solver++.  Per-step
+coefficients are computed on the host in float32 numpy from the schedule
+tables, with the same expressions as the JAX samplers, so no step waits
+on the device.  Noise comes from a ``torch.Generator`` on the model's
+device; ``noise=`` feeds explicit per-step draws instead (tests feed the
+draws the JAX chain makes).  Every sampler takes ``packed_idx`` to run
+the per-step UNet on the packed (sample, view) rows.
 
 Tensors are NHWC: y_cond (B, N, H, W, Cc), y_t (B, H, W, 3),
 view_count (B,), angle (B,).
@@ -27,7 +30,8 @@ view_count (B,), angle (B,).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,9 +40,36 @@ from viewfusion_tpu_torch.config import Config
 from viewfusion_tpu_torch.models.unet import UNet
 from viewfusion_tpu_torch.ops.schedules import DiffusionSchedule
 
-__all__ = ["ViewFusion", "view_mask", "ddim_timesteps", "dpm_timesteps"]
+__all__ = ["ViewFusion", "GenerateOutput", "ChainCarry", "view_mask",
+           "ddim_timesteps", "dpm_timesteps"]
 
 _f32 = np.float32
+
+
+class GenerateOutput(NamedTuple):
+    """Outputs of the ancestral chain (JAX ``GenerateOutput``)."""
+
+    y_t: torch.Tensor                  # final sample (B, H, W, 3)
+    ret_arr: torch.Tensor              # (B, frames + 1, H, W, 3), y_T first
+    logit_arr: Optional[torch.Tensor]  # (B, frames, N, H, W, 3) or None
+    weight_arr: Optional[torch.Tensor]  # (B, frames, N, H, W, 3) or None
+    generated_samples: torch.Tensor    # == ret_arr[:, -1]
+
+
+@dataclass
+class ChainCarry:
+    """State of a segmented ancestral chain (the JAX scan carry): the
+    current sample, the frame buffers (frame axis first) and the number of
+    frames written.  ``generator`` draws the per-step noise, as the key in
+    the JAX carry does.  :meth:`ViewFusion.chain_segment` updates it in
+    place."""
+
+    y_t: torch.Tensor
+    ret_arr: torch.Tensor
+    logit_arr: Optional[torch.Tensor]
+    weight_arr: Optional[torch.Tensor]
+    frame_idx: int
+    generator: Optional[torch.Generator]
 
 
 def view_mask(view_count: torch.Tensor, n_max: int) -> torch.Tensor:
@@ -228,12 +259,17 @@ class ViewFusion:
         return self._mse(out, noise, view_count)
 
     # ------------------------------------------------------------------
-    def _eps(self, y_cond, y, t, mask, angle):
+    def _composed(self, y_cond, y, t, mask, angle, packed_idx=None):
+        """The composed noise prediction at timestep t:
+        (noise_hat, logits, weights)."""
         b = y.shape[0]
         level = torch.full((b,), float(self.schedule.gammas[t]),
                            device=y.device)
-        out = self._denoise_views(y_cond, y, level, angle)
-        return self.compose(out, mask, self.weighting_inference)[0]
+        out = self._denoise_views(y_cond, y, level, angle, packed_idx)
+        return self.compose(out, mask, self.weighting_inference)
+
+    def _eps(self, y_cond, y, t, mask, angle, packed_idx=None):
+        return self._composed(y_cond, y, t, mask, angle, packed_idx)[0]
 
     def _x0(self, y, eps, t):
         s = self.schedule
@@ -259,15 +295,145 @@ class ViewFusion:
                            device=like.device)
 
     # ------------------------------------------------------------------
+    # the reference's ancestral chain
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def p_mean_variance(self, y_t, y_cond, mask, angle, t: int,
+                        packed_idx=None):
+        """One denoising step's posterior (JAX ``p_mean_variance``):
+        y0 from the composed noise prediction, clipped to [-1, 1], then
+        the posterior mean coef1[t] * y0 + coef2[t] * y_t.  Returns
+        (mean (B, H, W, 3), log-variance (a float32 scalar), logits,
+        weights); y_cond is in the UNet's dtype, mask (B, N)."""
+        s = self.schedule
+        noise, logits, weights = self._composed(y_cond, y_t, t, mask, angle,
+                                                packed_idx)
+        y0 = self._x0(y_t, noise, t)
+        mean = (float(s.posterior_mean_coef1[t]) * y0
+                + float(s.posterior_mean_coef2[t]) * y_t)
+        return mean, s.posterior_log_variance_clipped[t], logits, weights
+
+    @torch.no_grad()
+    def p_sample(self, y_t, y_cond, mask, angle, t: int, packed_idx=None,
+                 noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
+        """Ancestral step (JAX ``p_sample``): mean + exp(logvar / 2) * z,
+        with z = 0 at t = 0 (no draw is made there).  ``noise`` (B, H, W,
+        3) replaces the draw.  Returns (y, logits, weights)."""
+        mean, log_var, logits, weights = self.p_mean_variance(
+            y_t, y_cond, mask, angle, t, packed_idx)
+        if t > 0:
+            z = noise.to(mean.device, torch.float32) if noise is not None \
+                else torch.randn(mean.shape, generator=generator,
+                                 device=mean.device)
+            mean = mean + z * float(np.exp(_f32(0.5) * log_var))
+        return mean, logits, weights
+
+    def _frames(self, sample_num: int):
+        """(frame interval, frames kept) of a T-step chain: every
+        ``T // sample_num``-th step, counted down to t = 0."""
+        T = self.schedule.num_timesteps
+        if not T > sample_num:
+            raise ValueError(f"num_timesteps {T} must be greater than "
+                             f"sample_num {sample_num}")
+        inter = T // sample_num
+        return inter, (T - 1) // inter + 1
+
+    def init_chain(self, y_cond, view_count, sample_num: int = 8, y_t=None,
+                   capture_aux: bool = True,
+                   generator: Optional[torch.Generator] = None) -> ChainCarry:
+        """The initial carry of a (segmented) ancestral chain (JAX
+        ``init_chain``): y_T drawn from ``generator`` unless given, and
+        zeroed frame buffers with y_T as frame 0.  The logit and weight
+        buffers exist when ``weighting_inference and capture_aux``."""
+        b, n, h, w, _ = y_cond.shape
+        dev = y_cond.device
+        _, n_frames = self._frames(sample_num)
+        if y_t is None:
+            y_t = torch.randn((b, h, w, 3), generator=generator, device=dev)
+        y_t = y_t.to(dev, torch.float32)
+        ret_arr = torch.zeros((n_frames + 1, b, h, w, 3), device=dev)
+        ret_arr[0] = y_t
+        aux = None
+        if self.weighting_inference and capture_aux:
+            aux = [torch.zeros((n_frames, b, n, h, w, 3), device=dev)
+                   for _ in range(2)]
+        return ChainCarry(y_t, ret_arr, *(aux or (None, None)), 0, generator)
+
+    @torch.no_grad()
+    def chain_segment(self, carry: ChainCarry, ts, y_cond, view_count,
+                      angle, sample_num: int = 8, packed_idx=None,
+                      noise: Optional[Sequence[torch.Tensor]] = None
+                      ) -> ChainCarry:
+        """Run the ancestral chain over the descending timesteps ``ts``
+        from ``carry`` (JAX ``chain_segment``), keeping each frame at a
+        timestep that is a multiple of the frame interval.  The steps, the
+        draws and the frames are those of one :meth:`generate` call, so a
+        chain run in segments equals it bit for bit.  ``noise`` holds the
+        T per-step draws of the whole chain in the order they are used
+        (``noise[T - 1 - t]`` at timestep t).  Updates ``carry`` in place
+        and returns it."""
+        inter, _ = self._frames(sample_num)
+        T = self.schedule.num_timesteps
+        y_cond = y_cond.to(self.unet.dtype)  # as _start: the UNet's cast
+        mask = view_mask(view_count, y_cond.shape[1])
+        angle = angle.reshape(-1)
+        for t in ts:
+            t = int(t)
+            z = None if noise is None else noise[T - 1 - t]
+            y, logits, weights = self.p_sample(
+                carry.y_t, y_cond, mask, angle, t, packed_idx, z,
+                carry.generator)
+            carry.y_t = y
+            if t % inter == 0:
+                carry.ret_arr[carry.frame_idx + 1] = y
+                if carry.logit_arr is not None:
+                    carry.logit_arr[carry.frame_idx] = logits
+                    carry.weight_arr[carry.frame_idx] = weights
+                carry.frame_idx += 1
+        return carry
+
+    @staticmethod
+    def finalize_chain(carry: ChainCarry) -> GenerateOutput:
+        """Frame axes to batch-major (B, frames, ...), the reference's
+        return contract (JAX ``finalize_chain``)."""
+        ret_arr = carry.ret_arr.movedim(0, 1)
+        move = (lambda a: None if a is None else a.movedim(0, 1))
+        return GenerateOutput(carry.y_t, ret_arr, move(carry.logit_arr),
+                              move(carry.weight_arr), ret_arr[:, -1])
+
+    def generate(self, y_cond, view_count, angle, y_t=None,
+                 sample_num: int = 8, packed_idx=None,
+                 capture_aux: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[Sequence[torch.Tensor]] = None
+                 ) -> GenerateOutput:
+        """The full T-step ancestral chain (JAX ``generate``): y_T (drawn
+        from ``generator`` unless given), then t = T-1 .. 0, keeping every
+        ``T // sample_num``-th frame and, when ``weighting_inference and
+        capture_aux``, the logit and weight maps of those steps.
+        ``noise`` holds the T per-step draws (the JAX scan's
+        ``split(key)`` draws, in order)."""
+        carry = self.init_chain(y_cond, view_count, sample_num, y_t,
+                                capture_aux, generator)
+        T = self.schedule.num_timesteps
+        carry = self.chain_segment(carry, range(T - 1, -1, -1), y_cond,
+                                   view_count, angle, sample_num,
+                                   packed_idx, noise)
+        return self.finalize_chain(carry)
+
+    # ------------------------------------------------------------------
     @torch.no_grad()
     def generate_ddim(self, y_cond, view_count, angle, num_steps: int = 50,
                       eta: float = 1.0, y_t=None,
                       generator: Optional[torch.Generator] = None,
-                      noise: Optional[Sequence[torch.Tensor]] = None):
+                      noise: Optional[Sequence[torch.Tensor]] = None,
+                      packed_idx=None):
         """DDIM over a strided subset of the trained schedule (JAX
         ``generate_ddim``).  eta=1 injects DDPM-scale noise per step,
         eta=0 is deterministic.  ``noise[i]`` (B, H, W, 3) replaces the
-        draw of step i.  Returns the samples (B, H, W, 3) f32."""
+        draw of step i; ``packed_idx`` runs the UNet on packed rows.
+        Returns the samples (B, H, W, 3) f32."""
         sched = self.schedule
         T = sched.num_timesteps
         if not 1 <= num_steps <= T:
@@ -279,7 +445,7 @@ class ViewFusion:
         for i, (t, t_prev) in enumerate(zip(ts, ts_prev)):
             gamma_t = sched.gammas[t]
             gamma_prev = sched.gammas[t_prev] if t_prev >= 0 else _f32(1.0)
-            eps = self._eps(y_cond, y_t, t, mask, angle)
+            eps = self._eps(y_cond, y_t, t, mask, angle, packed_idx)
             y0 = self._x0(y_t, eps, t)
             # re-derive eps from the clipped y0, as ancestral sampling does
             eps = ((y_t - float(np.sqrt(gamma_t)) * y0)
@@ -300,11 +466,13 @@ class ViewFusion:
     def generate_dpm(self, y_cond, view_count, angle, num_steps: int = 20,
                      y_t=None, generator: Optional[torch.Generator] = None,
                      grid: str = "lambda", sde: bool = False,
-                     noise: Optional[Sequence[torch.Tensor]] = None):
+                     noise: Optional[Sequence[torch.Tensor]] = None,
+                     packed_idx=None):
         """DPM-Solver++(2M) in the x0 parameterization (JAX
         ``generate_dpm``): the probability-flow ODE, or with ``sde`` its
         SDE variant with per-step noise (``noise[i]`` replaces the draw of
-        step i).  The last step jumps to the clean prediction.
+        step i; ``packed_idx`` runs the UNet on packed rows).  The last
+        step jumps to the clean prediction.
         Returns the samples (B, H, W, 3) f32."""
         sched = self.schedule
         if not 2 <= num_steps <= sched.num_timesteps:
@@ -316,7 +484,8 @@ class ViewFusion:
                                              y_t, generator)
         x0_prev, h_prev = None, _f32(1.0)
         for i, (t, t_next) in enumerate(zip(ts, ts_next)):
-            x0 = self._x0(y, self._eps(y_cond, y, t, mask, angle), t)
+            x0 = self._x0(y, self._eps(y_cond, y, t, mask, angle,
+                                       packed_idx), t)
             g_cur = sched.gammas[t]
             g_next = sched.gammas[max(t_next, 0)]
             hh = _lam(g_next) - _lam(g_cur)

@@ -22,21 +22,31 @@ Parameters stay f32 (master weights); the UNet casts them to the compute
 dtype per call.  The host helpers below are numpy copies of the JAX
 trainer's, equal bit for bit: the stratified view-count multiset, the
 packed row indices and the salted per-step counts.
+
+Generation (the JAX trainer's sampler entry points) runs on the EMA
+shadow when there is one (``_infer_model``) and picks the sampler from
+``tpu.sampler``: the reference's ancestral chain (``ddpm``, in
+``tpu.chain_segments`` segments), DDIM or DPM-Solver++ (``dpm``,
+``dpm_sde``), on packed UNet rows when the batch carries them.  The JAX
+trainer's ``(seed + 23, salt)`` key becomes a ``torch.Generator`` seeded
+from both (:func:`salted_generator`).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from viewfusion_tpu_torch.config import Config
-from viewfusion_tpu_torch.models.view_fusion import ViewFusion
+from viewfusion_tpu_torch.models.view_fusion import (GenerateOutput,
+                                                     ViewFusion)
 from viewfusion_tpu_torch.training.schedulers import lr_schedule
 
 __all__ = ["Trainer", "norm_img", "stratified_count_multiset",
-           "packed_indices", "global_packed_counts"]
+           "packed_indices", "global_packed_counts", "salted_generator"]
 
 
 def norm_img(x: torch.Tensor) -> torch.Tensor:
@@ -88,6 +98,13 @@ def global_packed_counts(seed: int, salt: int, batch: int, max_views: int):
     return (counts,) + packed_indices(counts)
 
 
+def salted_generator(seed: int, salt: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from both ``seed`` and ``salt``
+    (the counterpart of ``fold_in(PRNGKey(seed), salt)``)."""
+    state = np.random.SeedSequence([seed, salt]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
 class Trainer:
     """The model, its Adam state, the EMA shadow and the step count.
 
@@ -119,8 +136,16 @@ class Trainer:
                                  decay_it=tc.decay_it)
         self.optimizer = torch.optim.Adam(self.params, lr=0.0,
                                           betas=(0.9, 0.999), eps=1e-8)
-        self.ema = ([p.detach().clone() for p in self.params]
-                    if tc.ema_decay > 0 else None)
+        # the EMA shadow is a second UNet, so that generation can run on
+        # it (_infer_model); self.ema lists its parameters
+        self.ema, self.ema_model = None, None
+        if tc.ema_decay > 0:
+            shadow = copy.deepcopy(self.model.unet).requires_grad_(False)
+            self.ema = list(shadow.parameters())
+            m = self.model
+            self.ema_model = ViewFusion(
+                shadow, m.schedule, weighting_train=m.weighting_train,
+                weighting_inference=m.weighting_inference)
         self.step = 0  # updates made
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.cond_key = "relative_cond" if config.relative else "cond"
@@ -184,3 +209,97 @@ class Trainer:
             torch._foreach_add_(self.ema,
                                 torch._foreach_mul(self.params, 1.0 - decay))
         self.step += 1
+
+    # ------------------------------------------------------------------
+    # generation (the JAX trainer's sampler entry points)
+    # ------------------------------------------------------------------
+    @property
+    def _infer_model(self) -> ViewFusion:
+        """The model generation runs: the EMA shadow when enabled."""
+        return self.ema_model if self.ema_model is not None else self.model
+
+    def _eval_samples(self, generator: torch.Generator,
+                      batch: Dict[str, Any]) -> torch.Tensor:
+        """Eval-time generation on a host batch (``cond``, ``view_count``,
+        ``angle`` and, for packed rows, ``sample_idx``/``view_idx``): the
+        reference's ancestral chain by default (``tpu.sampler: ddpm``, in
+        ``tpu.chain_segments`` segments, no frame capture), DDIM, or
+        DPM-Solver++.  Returns the samples (B, H, W, 3) f32 on the
+        device."""
+        put, tc = self._put, self.config.train
+        cond = norm_img(put(batch[self.cond_key]))
+        vc = put(batch["view_count"]).long()
+        angle = put(batch[self.angle_key]).float().reshape(-1)
+        packed_idx = None
+        if "sample_idx" in batch:
+            packed_idx = (put(batch["sample_idx"]).long(),
+                          put(batch["view_idx"]).long())
+        if tc.sampler != "ddpm":
+            return self._fast_sample(generator, cond, vc, angle, packed_idx)
+        return self._generate_segmented(
+            generator, cond, vc, angle, tc.chain_segments,
+            packed_idx=packed_idx, capture_aux=False).generated_samples
+
+    def _fast_sample(self, generator, cond, view_count, angle,
+                     packed_idx=None) -> torch.Tensor:
+        """DDIM (``tpu.sampler: ddim``) or DPM-Solver++ (``dpm``,
+        ``dpm_sde``) with the config's step counts."""
+        tc, model = self.config.train, self._infer_model
+        if tc.sampler == "ddim":
+            return model.generate_ddim(
+                cond, view_count, angle, num_steps=tc.ddim_steps,
+                eta=tc.ddim_eta, generator=generator, packed_idx=packed_idx)
+        return model.generate_dpm(
+            cond, view_count, angle, num_steps=tc.dpm_steps,
+            sde=tc.sampler == "dpm_sde", generator=generator,
+            packed_idx=packed_idx)
+
+    def _gen_inputs(self, cond, view_count, angle, key_salt: int):
+        """Shared generation prologue: the ``(seed + 23, salt)`` generator
+        and the inputs on the device, so the same salt gives the same
+        chain through every sampler."""
+        gen = salted_generator(self.config.train.seed + 23, key_salt,
+                               self.device)
+        return (gen, norm_img(self._put(cond)),
+                self._put(view_count).long(),
+                self._put(angle).float().reshape(-1))
+
+    def _generate_np(self, cond, view_count, angle,
+                     key_salt: int = 0) -> GenerateOutput:
+        """The ancestral chain with frame capture (``tpu.chain_segments``
+        segments), numpy in and out."""
+        gen, cond, view_count, angle = self._gen_inputs(
+            cond, view_count, angle, key_salt)
+        out = self._generate_segmented(gen, cond, view_count, angle,
+                                       self.config.train.chain_segments)
+        return GenerateOutput(*(None if a is None else a.cpu().numpy()
+                                for a in out))
+
+    def _sample_only_np(self, cond, view_count, angle,
+                        key_salt: int = 0) -> np.ndarray:
+        """Final samples through the configured sampler (``tpu.sampler``),
+        numpy in and out."""
+        if self.config.train.sampler == "ddpm":
+            return self._generate_np(cond, view_count, angle,
+                                     key_salt=key_salt).generated_samples
+        return self._fast_sample(*self._gen_inputs(
+            cond, view_count, angle, key_salt)).cpu().numpy()
+
+    def _generate_segmented(self, generator, cond, view_count, angle,
+                            segs: int, packed_idx=None,
+                            capture_aux: bool = True) -> GenerateOutput:
+        """The ancestral chain as ``segs`` segments of about T / segs
+        steps (``tpu.chain_segments``): the same steps and draws as one
+        ``generate`` call, which is what one segment is."""
+        model = self._infer_model
+        sample_num = self.config.train.sample_num
+        T = model.schedule.num_timesteps
+        carry = model.init_chain(cond, view_count, sample_num=sample_num,
+                                 capture_aux=capture_aux, generator=generator)
+        bounds = np.linspace(T, 0, segs + 1).round().astype(int)
+        for hi, lo in zip(bounds[:-1], bounds[1:]):
+            carry = model.chain_segment(
+                carry, range(int(hi) - 1, int(lo) - 1, -1), cond,
+                view_count, angle, sample_num=sample_num,
+                packed_idx=packed_idx)
+        return model.finalize_chain(carry)

@@ -41,8 +41,10 @@ Phases (any failure raises and exits non-zero without the final line):
  13. the conv3x3 op: one full-width bf16 packed training step with every
      stride-1 3x3 conv routed through conv3x3(impl="kernel") against the
      same step unpatched: the same loss, exactly one K4 launch per conv;
- 14. ancestral sampling, the third main path: the Trainer at the paper
-     config evaluates a batch of 8 (28 packed rows) with the reference's
+ 14. ancestral sampling, the third main path: K1 and K3 against their
+     plain versions at the GroupNorm and attention sites of this path's
+     28 packed rows (untimed); then the Trainer at the paper config
+     evaluates a batch of 8 (28 packed rows) with the reference's
      T = 2000 step chain (tpu.sampler ddpm) in 4 segments; the counters
      must rise by exactly the per-forward site counts times T;
  15. a tiny f32 ancestral chain with frame capture on the card against
@@ -99,8 +101,7 @@ from viewfusion_tpu_torch.ops.groupnorm import (
 from viewfusion_tpu_torch.serving import ViewFusionService
 from viewfusion_tpu_torch.training.trainer import (Trainer,
                                                    global_packed_counts,
-                                                   norm_img, packed_indices,
-                                                   salted_generator)
+                                                   norm_img)
 
 # configs/small-tpu-4.yaml, the fields the serving path reads (kept in
 # code: the card's machine may have no PyYAML)
@@ -134,9 +135,10 @@ TRAIN_BATCH = 28                # configs/small-tpu-1.yaml
 TRAIN_ROWS = 98                 # sum of stratified_count_multiset(28, 6)
 TRAIN_STEPS = 6                 # Trainer steps; the first is timed apart
 DDIM_STEPS, DPM_STEPS = 50, 20
-# the ancestral eval batch: stratified view counts of a batch of 8 (28
-# packed rows), the active schedule's T = 2000 steps in segments
-ANCESTRAL_COUNTS = (1, 2, 3, 4, 5, 6, 1, 6)
+# the ancestral eval batch: the stratified view counts of a batch of 8
+# (1, 2, 3, 4, 5, 6, 1, 6 shuffled: 28 packed rows), the active schedule's
+# T = 2000 steps in segments
+ANCESTRAL_BATCH = 8
 ANCESTRAL_SEGMENTS = 4
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 # peak rate by input type: bf16 on the tensor cores (dense); f32 outside
@@ -279,9 +281,11 @@ def sites(unet: UNet, rows: int, device):
     return gn, attn
 
 
-def check_group_norm(gn_sites, groups: int, device) -> dict:
-    """K1 against its plain version at each site (bf16, plus one f32
-    shape); per-forward totals weight each site by its count."""
+def check_group_norm(gn_sites, groups: int, device, rows: int = ROWS,
+                     timed: bool = True) -> dict:
+    """K1 against its plain version at each site at ``rows`` rows (bf16,
+    plus one f32 shape); per-forward totals weight each site by its
+    count.  ``timed=False`` checks without timing."""
     g = torch.Generator(device=device).manual_seed(SEED + 1)
     tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
                          "bound_bytes_ms", "max_abs_err"), 0.0)
@@ -289,7 +293,7 @@ def check_group_norm(gn_sites, groups: int, device) -> dict:
     cases = [(site, torch.bfloat16, n) for site, n in sorted(gn_sites.items())]
     cases.append((f32_site, torch.float32, 0))  # checked, not in totals
     for (l, c, act), dtype, count in cases:
-        x = (torch.randn((ROWS, l, c), generator=g, device=device) * 1.5
+        x = (torch.randn((rows, l, c), generator=g, device=device) * 1.5
              + 0.5).to(dtype)
         scale = torch.randn((c,), generator=g, device=device) * 0.5 + 1.0
         bias = torch.randn((c,), generator=g, device=device) * 0.5
@@ -305,8 +309,13 @@ def check_group_norm(gn_sites, groups: int, device) -> dict:
             raise AssertionError(f"K1 {(l, c, act)} {dtype}: err {err} > {tol}")
         torch.testing.assert_close(mean, mean_r, rtol=1e-4, atol=1e-5)
         torch.testing.assert_close(rstd, rstd_r, rtol=1e-4, atol=1e-5)
+        if not timed:
+            say(f"K1 L={l} C={c} act={act} {str(dtype)[6:]} at {rows} rows:"
+                f" err {err:.3g} (tol {tol:.3g})")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            continue
 
-        x4 = x.view(ROWS, int(l ** 0.5), -1, c).permute(0, 3, 1, 2)
+        x4 = x.view(rows, int(l ** 0.5), -1, c).permute(0, 3, 1, 2)
         w_lib, b_lib = scale.to(dtype), bias.to(dtype)
 
         def library():
@@ -319,7 +328,7 @@ def check_group_norm(gn_sites, groups: int, device) -> dict:
             x, scale, bias, **kw))
         lib_ms = device_ms(library)
         nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4 \
-            + 2 * ROWS * groups * 4
+            + 2 * rows * groups * 4
         bms, by = bound_ms(nbytes, 10 * x.numel(), torch.float32)
         say(f"K1 L={l} C={c} act={act} {str(dtype)[6:]} x{count}: "
             f"err {err:.3g} (tol {tol:.3g}) kernel {ms * 1e3:.1f} us "
@@ -330,16 +339,18 @@ def check_group_norm(gn_sites, groups: int, device) -> dict:
     return tot
 
 
-def check_attention(attn_sites, device) -> dict:
-    """K3 against its plain version at each site: q, k, v column slices
-    of one (B, S, 3C) qkv buffer, as the UNet hands them over."""
+def check_attention(attn_sites, device, rows: int = ROWS,
+                    timed: bool = True) -> dict:
+    """K3 against its plain version at each site at ``rows`` rows: q, k, v
+    column slices of one (B, S, 3C) qkv buffer, as the UNet hands them
+    over.  ``timed=False`` checks without timing."""
     g = torch.Generator(device=device).manual_seed(SEED + 2)
     tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
                          "bound_bytes_ms", "max_abs_err"), 0.0)
     cases = [(site, torch.bfloat16, n) for site, n in sorted(attn_sites.items())]
     cases.append((max(attn_sites), torch.float32, 0))
     for (s, c), dtype, count in cases:
-        qkv = torch.randn((ROWS, s, 3 * c), generator=g,
+        qkv = torch.randn((rows, s, 3 * c), generator=g,
                           device=device).to(dtype)
         q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
         scale = 1.0 / c ** 0.5
@@ -349,7 +360,12 @@ def check_attention(attn_sites, device) -> dict:
         err = (out - ref).abs().max().item()
         if not err <= 1e-4:
             raise AssertionError(f"K3 {(s, c)} {dtype}: err {err} > 1e-4")
-        q4, k4, v4 = (t.view(ROWS, 1, s, c) for t in (q, k, v))
+        if not timed:
+            say(f"K3 S={s} C={c} {str(dtype)[6:]} at {rows} rows: err "
+                f"{err:.3g}")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            continue
+        q4, k4, v4 = (t.view(rows, 1, s, c) for t in (q, k, v))
         ms = device_ms(lambda: spatial_self_attention(q, k, v, scale))
         eager_ms = call_ms(lambda: spatial_self_attention(q, k, v, scale))
         plain_ms = device_ms(
@@ -357,7 +373,7 @@ def check_attention(attn_sites, device) -> dict:
         lib_ms = device_ms(
             lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
         nbytes = 3 * q.numel() * q.element_size() + out.numel() * 4
-        bms, by = bound_ms(nbytes, 4 * ROWS * s * s * c, dtype)
+        bms, by = bound_ms(nbytes, 4 * rows * s * s * c, dtype)
         say(f"K3 S={s} C={c} {str(dtype)[6:]} x{count}: err {err:.3g} "
             f"kernel {ms * 1e3:.1f} us (eager call {eager_ms * 1e3:.1f} us) "
             f"plain {plain_ms * 1e3:.1f} us library {lib_ms * 1e3:.1f} us "
@@ -913,24 +929,36 @@ def check_conv3x3_step(device, n_sites: int) -> int:
 
 def run_ancestral(device, k1_sites: int, k3_sites: int) -> dict:
     """The reference's ancestral chain, the third main path: the Trainer at
-    the paper config (seeded weights) evaluates a batch of 8 at the
-    stratified view counts (R = 28 packed rows) with tpu.sampler ddpm,
-    the T = 2000 steps of the active schedule in ANCESTRAL_SEGMENTS
-    segments; counters must rise by exactly the site counts per step."""
+    the paper config (seeded weights) evaluates a batch of ANCESTRAL_BATCH
+    at the stratified view counts (R = 28 packed rows) with tpu.sampler
+    ddpm, the T = 2000 steps of the active schedule in ANCESTRAL_SEGMENTS
+    segments.  K1 and K3 are first held against their plain versions at
+    the sites and row count of this path; then the counters must rise by
+    exactly the site counts per step."""
     cfg = train_config(chain_segments=ANCESTRAL_SEGMENTS)
     trainer = Trainer(cfg, device=device, seed=SEED)
     model = trainer._infer_model
     T = model.schedule.num_timesteps
     rng = np.random.default_rng(SEED + 10)
-    counts = np.array(ANCESTRAL_COUNTS, np.int32)
     n, hw = cfg.data.max_views, cfg.unet.image_size
-    si, vi = packed_indices(counts)
+    counts, si, vi = global_packed_counts(cfg.train.seed, 0, ANCESTRAL_BATCH,
+                                          n)
     batch = {"cond": rng.integers(0, 256, (len(counts), n, hw, hw, 3),
                                   dtype=np.uint8),
-             "view_count": counts, "sample_idx": si, "view_idx": vi,
+             "view_count": counts.astype(np.int32), "sample_idx": si,
+             "view_idx": vi,
              "angle": rng.uniform(0, 2 * np.pi, len(counts)).astype(
                  np.float32)}
-    gen = salted_generator(cfg.train.seed + 17, 0, device)
+    gn_sites, attn_sites = sites(model.unet, len(si), device)
+    if (sum(gn_sites.values()), sum(attn_sites.values())) != (k1_sites,
+                                                              k3_sites):
+        raise AssertionError(f"sites at {len(si)} rows differ: {gn_sites}, "
+                             f"{attn_sites}")
+    errs = {"k1": check_group_norm(gn_sites, cfg.unet.norm_groups, device,
+                                   rows=len(si), timed=False)["max_abs_err"],
+            "k3": check_attention(attn_sites, device, rows=len(si),
+                                  timed=False)["max_abs_err"]}
+    gen =trainer._gen_inputs(batch["cond"], counts, batch["angle"], 0)[0]
     torch.cuda.synchronize()
     group_norm_act.launches = spatial_self_attention.launches = 0
     model.unet_forwards = 0
@@ -948,14 +976,14 @@ def run_ancestral(device, k1_sites: int, k3_sites: int) -> dict:
             and torch.isfinite(out).all()):
         raise AssertionError(f"bad ancestral output {tuple(out.shape)}")
     say(f"ancestral chain (ddpm, T={T}, {ANCESTRAL_SEGMENTS} segments), "
-        f"batch of {len(counts)} at view counts {ANCESTRAL_COUNTS} "
+        f"batch of {len(counts)} at view counts {counts.tolist()} "
         f"({len(si)} packed rows), bf16: {sec:.2f} s per batch = "
         f"{sec / T * 1e3:.2f} ms per step on {card_line()}; samples in "
         f"[{out.min().item():.3f}, {out.max().item():.3f}]")
     say(f"launches on the ancestral path: K1 {launches['k1']}, K3 "
         f"{launches['k3']} over {steps} steps")
     profile_chain(trainer, batch)
-    return launches
+    return launches, errs
 
 
 def profile_chain(trainer: Trainer, batch: dict, steps: int = 10) -> None:
@@ -964,10 +992,9 @@ def profile_chain(trainer: Trainer, batch: dict, steps: int = 10) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     model, put = trainer._infer_model, trainer._put
-    cond = norm_img(put(batch["cond"]))
-    vc, angle = put(batch["view_count"]).long(), put(batch["angle"])
+    gen, cond, vc, angle = trainer._gen_inputs(
+        batch["cond"], batch["view_count"], batch["angle"], 1)
     idx = (put(batch["sample_idx"]).long(), put(batch["view_idx"]).long())
-    gen = salted_generator(SEED, 1, trainer.device)
     carry = model.init_chain(cond, vc, trainer.config.train.sample_num,
                              capture_aux=False, generator=gen)
     segment = lambda ts: model.chain_segment(  # noqa: E731
@@ -1151,7 +1178,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 14. ancestral sampling: the third main path
-    anc_launches = run_ancestral(device, k1_calls, k3_calls)
+    anc_launches, anc_errs = run_ancestral(device, k1_calls, k3_calls)
+    for tot, key in ((k1, "k1"), (k3, "k3")):
+        tot["max_abs_err"] = max(tot["max_abs_err"], anc_errs[key])
     torch.cuda.empty_cache()
 
     # 15. tiny f32 ancestral chain on the card against the CPU

@@ -22,11 +22,12 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-__all__ = ["library", "check", "build_log", "dtype_code", "stream_ptr"]
+__all__ = ["library", "check", "build_log", "dtype_code", "stream_ptr",
+           "sm_count"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -166,3 +167,17 @@ def dtype_code(dtype, what: str) -> int:
 def stream_ptr(device) -> int:
     """PyTorch's current stream on ``device``, for a kernel launch."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of the CUDA ``device`` (cached per device), which
+    the wrappers use to size their split reductions."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]

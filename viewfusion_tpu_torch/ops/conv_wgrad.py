@@ -22,8 +22,6 @@ from the library (``impl="library"``, JAX's "xla").
 
 from __future__ import annotations
 
-from typing import Dict
-
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
@@ -33,7 +31,6 @@ from viewfusion_tpu_torch import _native
 __all__ = ["conv3x3_wgrad", "conv3x3_wgrad_reference", "conv3x3"]
 
 _IMPLS = ("library", "kernel")
-_sm_count: Dict[int, int] = {}
 
 
 def _check_shapes(x: torch.Tensor, g: torch.Tensor) -> None:
@@ -58,13 +55,8 @@ def conv3x3_wgrad_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _splits(device: torch.device, shape, dtype_code: int) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
     n = _native.library().vf_conv3x3_wgrad_splits(*shape, dtype_code,
-                                                   _sm_count[idx])
+                                                   _native.sm_count(device))
     if n < 1:
         raise ValueError(f"conv3x3_wgrad: shape {shape} refused")
     return n

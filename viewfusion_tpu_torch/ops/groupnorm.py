@@ -16,7 +16,6 @@ plain versions, :func:`group_norm_act_reference` and
 from __future__ import annotations
 
 import math
-from typing import Dict
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -27,7 +26,6 @@ __all__ = ["group_norm_act", "group_norm_act_reference",
            "group_norm_act_backward", "group_norm_act_backward_reference"]
 
 _ACTS = {"none": 0, "silu": 1}
-_sm_count: Dict[int, int] = {}
 
 
 def _check_args(x: torch.Tensor, groups: int, act: str) -> None:
@@ -106,12 +104,7 @@ def group_norm_act_backward_reference(x, g, scale, bias, mean, rstd, *,
 def _splits(device: torch.device, b: int, l: int) -> int:
     """Row splits per sample: enough blocks for ~4 per SM, at least 16
     rows a block (see csrc/groupnorm.cu)."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    want = math.ceil(4 * _sm_count[idx] / b)
+    want = math.ceil(4 * _native.sm_count(device) / b)
     return max(1, min(want, l // 16))
 
 

@@ -9,7 +9,8 @@ Phases (any failure raises and exits non-zero without the final line):
   3. K1 GroupNorm(+SiLU) at every GroupNorm site of the paper UNet, found
      by hooks on the model, at the serving batch of 8 x 6 views, against
      its plain version, with times;
-  4. K3 attention at every attention site of the paper UNet, the same way;
+  4. K3 attention at every attention site of the paper UNet, the same way,
+     with each site's share of its bound and its ratio to SDPA;
   5. the full-width paper UNet in bf16 with the kernels against the same
      UNet with the plain versions patched in;
   6. serving, the main path: ViewFusionService at the paper config with
@@ -37,7 +38,8 @@ Phases (any failure raises and exits non-zero without the final line):
      the paper UNet at R = 98 rows (bf16 at every site, f32 at the
      largest and at a Cin = 6 one) against its plain version, with times,
      the bound and weight-only cuDNN (aten.convolution_backward) as the
-     library yardstick, and the step's conv work recomputed from hooks;
+     library yardstick (each site's ratio to it), and the step's conv
+     work recomputed from hooks;
  13. the conv3x3 op: one full-width bf16 packed training step with every
      stride-1 3x3 conv routed through conv3x3(impl="kernel") against the
      same step unpatched: the same loss, exactly one K4 launch per conv;
@@ -378,7 +380,7 @@ def check_attention(attn_sites, device, rows: int = ROWS,
             f"kernel {ms * 1e3:.1f} us (eager call {eager_ms * 1e3:.1f} us) "
             f"plain {plain_ms * 1e3:.1f} us library {lib_ms * 1e3:.1f} us "
             f"bound {bms * 1e3:.1f} us ({by})"
-            f" = {bms / ms:.0%} of bound")
+            f" = {bms / ms:.0%} of bound; kernel / SDPA {ms / lib_ms:.2f}")
         add_site(tot, count, ms, plain_ms, lib_ms, bms, nbytes, err)
     return tot
 
@@ -849,7 +851,8 @@ def check_conv_wgrad(sites, device) -> dict:
             f"(eager call {eager_ms * 1e3:.1f} us) plain "
             f"{plain_ms * 1e3:.1f} us library {lib_ms * 1e3:.1f} us (bf16 "
             f"dW, max abs diff {lib_err.item():.3g} of {scale:.3g}) bound "
-            f"{bms * 1e3:.1f} us ({by}) = {bms / ms:.0%} of bound")
+            f"{bms * 1e3:.1f} us ({by}) = {bms / ms:.0%} of bound; "
+            f"kernel / cuDNN {ms / lib_ms:.2f}")
         add_site(tot, count, ms, plain_ms, lib_ms, bms, nbytes, err)
     say(f"K4 work per training step at {TRAIN_ROWS} rows: "
         f"{sum(sites.values())} conv sites ({len(sites)} distinct), "

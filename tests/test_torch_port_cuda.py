@@ -22,9 +22,10 @@ import torch
 from viewfusion_tpu_torch.config import UNetConfig
 from viewfusion_tpu_torch.models.unet import UNet
 from viewfusion_tpu_torch.ops.attention import (
-    spatial_self_attention, spatial_self_attention_reference)
+    attention_plan, spatial_self_attention, spatial_self_attention_reference)
 from viewfusion_tpu_torch.ops.conv_wgrad import (conv3x3, conv3x3_wgrad,
-                                                 conv3x3_wgrad_reference)
+                                                 conv3x3_wgrad_reference,
+                                                 wgrad_plan)
 from viewfusion_tpu_torch.ops.groupnorm import (
     group_norm_act, group_norm_act_backward,
     group_norm_act_backward_reference, group_norm_act_reference)
@@ -41,9 +42,14 @@ GN_SHAPES = [
     (2, 3, 3, 6, 2),
 ]
 # (B, S, C): bf16 with C a multiple of 8 up to 320 takes the tensor-core
-# path; C = 20 and C = 400 (and every f32 case) the CUDA-core path
+# (wgmma) path; C = 20 and C = 400 (and every f32 case) the CUDA-core
+# path.  The UNet's two sites at the ancestral (28), serving (48) and
+# training (98) rows, key counts that are not a multiple of the 64-key
+# tile (70, 33, 5), and one row
 ATTN_SHAPES = [(2, 64, 40), (3, 70, 192), (48, 256, 192), (48, 64, 320),
-               (1, 5, 8), (2, 33, 20), (2, 40, 400)]
+               (1, 5, 8), (2, 33, 20), (2, 40, 400), (2, 33, 64),
+               (28, 256, 192), (98, 256, 192), (28, 64, 320),
+               (98, 64, 320), (1, 256, 192)]
 
 
 @pytest.fixture
@@ -271,12 +277,15 @@ def test_unet_backward_on_the_card_matches_the_cpu(device):
 
 
 # (B, H, W, Cin, Cout): ragged channels (6, 3, 5), odd images (5 x 7),
-# widths over the 64-pixel chunk, several output tiles, and two paper
-# sites at R = 98 (the largest 64 px one and an 8 px one)
+# widths over the 64-pixel chunk, several output tiles, heights that are
+# not a multiple of the chunk rows (9 and 13), one image, and paper sites
+# at R = 98 (the largest 64 px one, the two ragged ones, two 8 px ones)
 WGRAD_SHAPES = [(2, 8, 8, 4, 8), (3, 5, 7, 6, 4), (2, 4, 4, 3, 5),
                 (2, 16, 16, 6, 64), (2, 16, 16, 64, 6), (1, 9, 70, 40, 24),
                 (4, 32, 32, 128, 96), (98, 64, 64, 192, 64),
-                (98, 8, 8, 640, 320)]
+                (98, 8, 8, 640, 320), (2, 13, 24, 64, 64),
+                (1, 16, 16, 128, 64), (98, 8, 8, 320, 320),
+                (98, 64, 64, 6, 64), (98, 64, 64, 64, 6)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -301,6 +310,38 @@ def test_conv_wgrad_kernel_matches_plain(device, shape, dtype):
     rel = 1e-5 * max(1.0, (b * h * w / 4096) ** 0.5)
     assert (out - ref).abs().max().item() <= rel * ref.abs().max().item()
     assert torch.equal(out, again)
+
+
+def test_tensor_core_paths_at_main_path_shapes(device):
+    """bf16 K3 at the 16 px site of a served forward (q, k, v strided
+    slices of one qkv buffer) and bf16 K4 at the largest 64 px site of a
+    training step: the plans pick the wgmma paths, each call launches
+    once, and the results are within their tolerances (K3 1e-4; K4 1e-5
+    of the scale times sqrt(R*H*W / 4096))."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    gen = torch.Generator(device=device).manual_seed(6)
+    qkv = torch.randn((48, 256, 576), generator=gen,
+                      device=device).bfloat16()
+    q, k, v = qkv[..., :192], qkv[..., 192:384], qkv[..., 384:]
+    assert attention_plan(48, 256, 192)["parts"] == 1
+    before = spatial_self_attention.launches
+    out = spatial_self_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert spatial_self_attention.launches == before + 1
+    ref = spatial_self_attention_reference(q, k, v, 0.125)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+    x = torch.randn((98, 64, 64, 64), generator=gen, device=device).bfloat16()
+    g = torch.randn((98, 64, 64, 64), generator=gen, device=device).bfloat16()
+    assert wgrad_plan(98, 64, 64, 64, 64, torch.bfloat16,
+                      sms)["path"] == "wgmma"
+    before = conv3x3_wgrad.launches
+    dw = conv3x3_wgrad(x, g)
+    torch.cuda.synchronize()
+    assert conv3x3_wgrad.launches == before + 1
+    ref = conv3x3_wgrad_reference(x, g)
+    tol = 1e-5 * (98 * 64 * 64 / 4096) ** 0.5 * ref.abs().max().item()
+    assert (dw - ref).abs().max().item() <= tol
 
 
 def test_conv3x3_op_on_the_card(device):

@@ -11,28 +11,58 @@
 // takes a row stride and a batch stride instead of a copy.
 //
 // Bound on the H100 at the UNet's shapes (S = 256, C = 192 and S = 64,
-// C = 320, B = 48): bytes.  4*S*C flops per row of q against 3*2*C bytes
-// read (bf16) and 4*C written is 4*S/10 ~ 100 flop/byte at S = 256, under
-// the ~295 flop/byte ridge of the bf16 tensor cores but far above the
-// ~20 flop/byte ridge of f32 math on the CUDA cores.  So the products
-// must run on the tensor cores without giving up f32 results:
+// C = 320; 48 rows served, 98 trained, 28 in the ancestral chain): bytes.
+// 4*S*C flops per row of q against 3*2*C bytes read (bf16) and 4*C
+// written is 4*S/10 ~ 100 flop/byte at S = 256, under the ~295 flop/byte
+// ridge of the bf16 tensor cores but far above the ~20 flop/byte ridge of
+// f32 math on the CUDA cores.  At 48 rows, S = 256, C = 192 the bytes
+// (23.6 MB) take 7.0 us at 3.35 TB/s.  So the products run on the tensor
+// cores without giving up f32 results:
 //
-// attn_fwd_mma (bf16 inputs, C a multiple of 8, C <= 320: the UNet's
-// path).  One block of 4 warps per (batch row, 64 queries); each warp
-// owns 16 queries.  K and V stream through shared memory in tiles of 64
-// keys with an online (running max and sum) softmax.  S = Q.K^T runs as
-// mma.sync m16n8k16 bf16 with f32 accumulation: a product of two bf16
-// values is exact in f32, so this is the f32 math of the TPU kernel up
-// to summation order.  For P.V the f32 probabilities are split exactly
-// into three bf16 terms (8 + 8 + 8 bits of mantissa), each multiplied by
-// the bf16 V on the tensor cores and accumulated in f32: again exact
-// products, f32 sums.  P stays in registers: the accumulator fragment of
-// S is the A fragment of P.V.  Rows in shared memory are padded so the
-// fragment loads are free of bank conflicts; V is stored transposed so
-// its B fragments are contiguous.  Channels are zero-padded to the
-// instantiated width.
+// attn_fwd_wgmma (bf16 inputs, C a multiple of 8, C <= 320: the UNet's
+// path).  A block is one warpgroup (128 threads) and owns 64 queries of a
+// row and `cpart` of its output channels; `parts` blocks split the
+// channels (ops/attention.py attention_plan).  Work units (blocks) per
+// site: S = 256, C = 192: 192 at 48 rows, 392 at 98, 112 at 28 (parts 1:
+// a second part would fetch all of K again);
+// S = 64, C = 320: parts 2 (one 320-wide O accumulator would take 160
+// registers a thread), 96 blocks at 48 rows, 196 at 98, 56 at 28.
+//  * S = Q.K^T: wgmma m64n64k16, A = Q and B = K both K-major (channels
+//    contiguous, as the qkv slices are) from shared memory, C/16 products
+//    per 64-key tile into 32 f32 registers a thread.  A product of two
+//    bf16 values is exact in f32, so this is the f32 math of the TPU
+//    kernel up to summation order.
+//  * Online softmax (running max and sum) on the accumulator in registers.
+//  * O += P.V: wgmma m64nNk16 (N = 64, 128 or 192: the block's channels
+//    rounded up to 64) with A = P from registers (the S accumulator of a
+//    warp is the A fragment of its 16 rows) and B = V read N-major
+//    ("transposed") straight from its staged tile: no transposed copy.
+//    P is split exactly into three bf16 terms (8 + 8 + 8 bits of
+//    mantissa), three products into one f32 accumulator: exact products,
+//    f32 sums (SDPA rounds P to bf16 once; this does not).
+//  * Operand layout: 128-byte swizzle.  A tile is stored as blocks of 64
+//    channels x 64 rows (8 KB: rows of 128 bytes, their 16-byte chunks
+//    permuted by row % 8), exactly as one TMA box with SWIZZLE_128B
+//    writes it.  Q and K (K-major): SBO 1 KB (next 8 rows); the k-slice
+//    of channels 16c .. 16c + 15 starts (c / 4) * 8 KB + (c % 4) * 32
+//    bytes in.  V (N-major): SBO 1 KB (next 8 keys), LBO 8 KB (next 64
+//    channels); the slice of keys 16kk .. starts kk * 2 KB in.
+//  * Staging: TMA tiled loads from three tensor maps over the strided
+//    q, k, v views (dims C, S, B; the row stride 3C * 2 bytes is a
+//    multiple of 16), one 8 KB box per 64 channels (128 contiguous bytes
+//    of a row each; 16-byte-wide boxes took 28.7 us per (48, 256, 192)
+//    call against 16.3 on an H100 at 700 W, chip_smoke.py phase 4),
+//    issued by one thread into a ring of three slots with one mbarrier
+//    each, K and V tiles alternating (K0 V0 K1 V1 ...), so V_j and
+//    K_{j+1} fly while S_j is multiplied, and K_{j+1} and V_{j+1} while
+//    P_j V_j is.  Q is staged once.  Shared memory: 96 KB at C = 192 (two blocks an SM),
+//    120 KB at S = 64, C = 320 (two slots).  The host encodes the three
+//    maps per call (cuTensorMapEncodeTiled, found in the loaded driver).
+//  * Rows past S and channels past C arrive as zeros from TMA (no NaN
+//    from stale memory can reach an MMA); keys past S are masked to -inf
+//    before the softmax.
 //
-// attn_fwd (f32 inputs, or shapes the mma path does not take): the same
+// attn_fwd (f32 inputs, or shapes the wgmma path does not take): the same
 // online softmax with f32 FMAs on the CUDA cores.  One block per (batch
 // row, 32 queries), 256 threads as a 16 x 16 grid, key tiles of 32; each
 // thread owns 2 queries x 2 keys of a score tile and 2 queries x
@@ -41,6 +71,8 @@
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -211,23 +243,17 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
   return cudaErrorInvalidValue;  // C > 576 does not fit shared memory
 }
 
-
 // ---------------------------------------------------------------------
-// tensor-core path (bf16)
+// tensor-core path (bf16): wgmma, TMA staging
 // ---------------------------------------------------------------------
-constexpr int kMmaBQ = 64;  // queries per block: 4 warps x 16
-constexpr int kMmaBK = 64;  // keys per tile
-constexpr int kMmaThreads = 128;
-constexpr int kMmaMaxC = 320;
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kWgQ = 64;        // queries per block: one warpgroup, wgmma M
+constexpr int kWgKeys = 64;     // keys per tile: the N of S = Q K^T
+constexpr int kWgThreads = 128;
+constexpr int kWgMaxC = 320;
+constexpr int kWgMaxNV = 3;     // output channels per block <= 64 * 3
+constexpr int kWgSlots = 3;     // staging ring: K and V tiles alternate
+constexpr int kBlockCh = 64;    // channels of a TMA box: 128-byte rows
+constexpr int kBlockBytes = kWgQ * 128;  // 64 rows x 64 channels, one box
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
@@ -247,102 +273,115 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t* hi,
   *lo = as_u32(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
 }
 
-template <int CP>  // CP: channels padded to a multiple of 16 (>= C)
-__global__ void __launch_bounds__(kMmaThreads)
-    attn_fwd_mma(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
-                 int S, int C, long long bstride, long long rstride,
-                 float scale) {
-  constexpr int NT = CP / 8;       // 8-channel output tiles per warp
-  constexpr int LDQ = CP + 8;      // padded rows (bf16 elements)
-  constexpr int LDV = kMmaBK + 8;
-  constexpr int CHUNKS = CP / 8;   // 16-byte chunks per padded row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kMmaBQ * LDQ;   // [key][LDQ]
-  __nv_bfloat16* vt = ks + kMmaBK * LDQ;   // [channel][LDV], V transposed
+// Stage 64 rows (r0 ...) x 64 * blocks channels (ch0 ...) of row b of a
+// (B, S, C) tensor map: one 8 KB box per 64 channels (64 rows of 128
+// bytes, 128-byte swizzled), block k at k * 8192.  Rows >= S and channels
+// >= C arrive as zeros.
+__device__ __forceinline__ void stage_tile(unsigned char* dst,
+                                           const CUtensorMap* map,
+                                           uint64_t* bar, int r0, int ch0,
+                                           int blocks, int b) {
+  vf::mbar_expect(bar, blocks * kBlockBytes);
+  for (int k = 0; k < blocks; ++k)
+    vf::tma_load_3d(dst + k * kBlockBytes, map, bar, ch0 + kBlockCh * k, r0,
+                    b);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.y, q0 = blockIdx.x * kMmaBQ;
-  const __nv_bfloat16* qb = q + b * bstride;
-  const __nv_bfloat16* kb = k + b * bstride;
-  const __nv_bfloat16* vb = v + b * bstride;
-  const int cchunks = C / 8;  // real 16-byte chunks per row
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+template <int NV>  // NV: 64-channel blocks of the output channels a block owns
+__global__ void __launch_bounds__(kWgThreads)
+    attn_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   float* __restrict__ out, int S, int C, int cpart,
+                   float scale) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int qb = (C + kBlockCh - 1) / kBlockCh;    // Q/K blocks (K of Q.K^T)
+  constexpr int vb = NV;                            // V blocks (N of P.V)
+  const int slot_bytes = kBlockBytes * (qb > vb ? qb : vb);
+  const int ntiles = (S + kWgKeys - 1) / kWgKeys, nloads = 2 * ntiles;
+  const int nslots = nloads < kWgSlots ? nloads : kWgSlots;
+  unsigned char* qs = smem_raw;
+  unsigned char* slots = qs + kBlockBytes * qb;
+  // mbarriers of the ring's slots, then Q's, after the tiles (all of
+  // shared memory is dynamic: the launch may ask for the whole 227 KB)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(slots + nslots * slot_bytes);
+  const uint32_t qs_a = vf::smem_u32(qs), slots_a = vf::smem_u32(slots);
 
-  for (int i = tid; i < kMmaBQ * CHUNKS; i += kMmaThreads) {
-    const int r = i / CHUNKS, cc = i - r * CHUNKS;
-    const int qi = q0 + r;
-    uint4 val = zero;
-    if (qi < S && cc < cchunks)
-      val = *reinterpret_cast<const uint4*>(qb + qi * rstride + cc * 8);
-    *reinterpret_cast<uint4*>(qs + r * LDQ + cc * 8) = val;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * kWgQ, n0 = blockIdx.y * cpart, b = blockIdx.z;
+  const int n_end = min(C, n0 + cpart);
+  const bool leader = threadIdx.x == 0;
+  const CUtensorMap *kp = &kmap, *vp = &vmap;
+
+  // load i of the ring: K tile i / 2 (even i) or V tile i / 2 (odd i)
+  // into slot i % kWgSlots, issued by one thread
+  auto issue = [&](int i) {
+    if (!leader || i >= nloads) return;
+    const int slot = i % kWgSlots;
+    unsigned char* dst = slots + slot * slot_bytes;
+    if (i % 2 == 0)
+      stage_tile(dst, kp, &bars[slot], (i / 2) * kWgKeys, 0, qb, b);
+    else
+      stage_tile(dst, vp, &bars[slot], (i / 2) * kWgKeys, n0, vb, b);
+  };
+  // the parity of load i's completion on its slot's barrier
+  auto wait_load = [&](int i) {
+    vf::mbar_wait(&bars[i % kWgSlots], (i / kWgSlots) & 1);
+  };
+  if (leader) {
+    for (int i = 0; i <= kWgSlots; ++i) vf::mbar_init(&bars[i], 1);
+    vf::mbar_fence_init();
   }
+  __syncthreads();
+  if (leader) stage_tile(qs, &qmap, &bars[kWgSlots], q0, 0, qb, b);
+  issue(0);
+  issue(1);
+  issue(2);
 
-  float o[NT][4];
+  float o[NV * 32];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int i = 0; i < NV * 32; ++i) o[i] = 0.f;
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // rows g and g + 8
   float l0 = 0.f, l1 = 0.f;                      // this thread's part
-  const __nv_bfloat16* qw = qs + warp * 16 * LDQ;
+  vf::mbar_wait(&bars[kWgSlots], 0);            // Q
 
-  for (int k0 = 0; k0 < S; k0 += kMmaBK) {
-    __syncthreads();  // the previous tile is consumed (and q is stored)
-    for (int i = tid; i < kMmaBK * CHUNKS; i += kMmaThreads) {
-      const int r = i / CHUNKS, cc = i - r * CHUNKS;
-      const int kj = k0 + r;
-      uint4 val = zero;
-      if (kj < S && cc < cchunks)
-        val = *reinterpret_cast<const uint4*>(kb + kj * rstride + cc * 8);
-      *reinterpret_cast<uint4*>(ks + r * LDQ + cc * 8) = val;
-    }
-    // V: consecutive threads take consecutive keys, so the transposed
-    // 2-byte stores fall in distinct banks
-    for (int i = tid; i < kMmaBK * CHUNKS; i += kMmaThreads) {
-      const int cc = i / kMmaBK, r = i - cc * kMmaBK;
-      const int kj = k0 + r;
-      uint4 val = zero;
-      if (kj < S && cc < cchunks)
-        val = *reinterpret_cast<const uint4*>(vb + kj * rstride + cc * 8);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+  for (int j = 0; j < ntiles; ++j) {
+    wait_load(2 * j);  // K_j
+    const uint32_t ks = slots_a + ((2 * j) % kWgSlots) * slot_bytes;
+    float s[32];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) vt[(cc * 8 + j) * LDV + r] = e[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 queries x 64 keys
-    float s[8][4];
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll 2
-    for (int kc = 0; kc < CP / 16; ++kc) {
-      const int c = kc * 16 + t4 * 2;
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(qw + g * LDQ + c);
-      a[1] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * LDQ + c);
-      a[2] = *reinterpret_cast<const uint32_t*>(qw + g * LDQ + c + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * LDQ + c + 8);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* kr = ks + (n * 8 + g) * LDQ + c;
-        mma_bf16(s[n], a, *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
+    for (int i = 0; i < 32; ++i) vf::fence_reg(s[i]);
+    vf::wg_fence();
+    // Q and K are K-major, 128-byte swizzled: SBO 1 KB (next 8 rows); the
+    // k-slice of channels 16c.. starts 32 bytes into its block's rows
+    for (int c = 0; c < (C + 15) / 16; ++c) {
+      const uint32_t off = (c / 4) * kBlockBytes + (c % 4) * 32;
+      vf::wgmma_m64n64k16_ss<0, 0>(s, vf::wg_desc_sw128(qs_a + off, 16, 1024),
+                                   vf::wg_desc_sw128(ks + off, 16, 1024),
+                                   c > 0);
     }
+    vf::wg_commit();
+    vf::wg_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) vf::fence_reg(s[i]);
+    __syncthreads();  // every warp is done with K_j's slot
+    issue(2 * j + 3);
 
     // online softmax; a row's 64 scores live in the 4 lanes of its group
+    const int k0 = j * kWgKeys;
     float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool valid = k0 + n * 8 + t4 * 2 + j < S;
-        s[n][j] = valid ? s[n][j] * scale : -CUDART_INF_F;
-        s[n][j + 2] = valid ? s[n][j + 2] * scale : -CUDART_INF_F;
-        mx0 = fmaxf(mx0, s[n][j]);
-        mx1 = fmaxf(mx1, s[n][j + 2]);
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = k0 + n * 8 + t4 * 2 + e < S;
+        s[4 * n + e] = valid ? s[4 * n + e] * scale : -CUDART_INF_F;
+        s[4 * n + e + 2] = valid ? s[4 * n + e + 2] * scale : -CUDART_INF_F;
+        mx0 = fmaxf(mx0, s[4 * n + e]);
+        mx1 = fmaxf(mx1, s[4 * n + e + 2]);
       }
     }
 #pragma unroll
@@ -357,40 +396,52 @@ __global__ void __launch_bounds__(kMmaThreads)
     l0 *= al0;
     l1 *= al1;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= al0;
-      o[n][1] *= al0;
-      o[n][2] *= al1;
-      o[n][3] *= al1;
+    for (int i = 0; i < NV * 8; ++i) {
+      o[4 * i] *= al0;
+      o[4 * i + 1] *= al0;
+      o[4 * i + 2] *= al1;
+      o[4 * i + 3] *= al1;
     }
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      s[n][0] = expf(s[n][0] - mn0);
-      s[n][1] = expf(s[n][1] - mn0);
-      s[n][2] = expf(s[n][2] - mn1);
-      s[n][3] = expf(s[n][3] - mn1);
-      l0 += s[n][0] + s[n][1];
-      l1 += s[n][2] + s[n][3];
+      s[4 * n] = expf(s[4 * n] - mn0);
+      s[4 * n + 1] = expf(s[4 * n + 1] - mn0);
+      s[4 * n + 2] = expf(s[4 * n + 2] - mn1);
+      s[4 * n + 3] = expf(s[4 * n + 3] - mn1);
+      l0 += s[4 * n] + s[4 * n + 1];
+      l1 += s[4 * n + 2] + s[4 * n + 3];
     }
-
-    // O += P V, 16 keys at a time, P split into three exact bf16 terms
+    // P as A fragments, split into three exact bf16 terms: [term][kk][4]
+    uint32_t p[3][4][4];
 #pragma unroll
-    for (int kc = 0; kc < kMmaBK / 16; ++kc) {
-      uint32_t ph[4], pm[4], pl[4];
-      split3(s[2 * kc][0], s[2 * kc][1], &ph[0], &pm[0], &pl[0]);
-      split3(s[2 * kc][2], s[2 * kc][3], &ph[1], &pm[1], &pl[1]);
-      split3(s[2 * kc + 1][0], s[2 * kc + 1][1], &ph[2], &pm[2], &pl[2]);
-      split3(s[2 * kc + 1][2], s[2 * kc + 1][3], &ph[3], &pm[3], &pl[3]);
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* vr = vt + (n * 8 + g) * LDV + kc * 16 + t4 * 2;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vr);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vr + 8);
-        mma_bf16(o[n], ph, b0, b1);
-        mma_bf16(o[n], pm, b0, b1);
-        mma_bf16(o[n], pl, b0, b1);
+      for (int f = 0; f < 4; ++f) {
+        const int i = 8 * kk + 2 * f;  // f: (row g | g+8) x (keys | keys+8)
+        split3(s[i], s[i + 1], &p[0][kk][f], &p[1][kk][f], &p[2][kk][f]);
       }
     }
+
+    wait_load(2 * j + 1);  // V_j
+    const uint32_t vs = slots_a + ((2 * j + 1) % kWgSlots) * slot_bytes;
+#pragma unroll
+    for (int i = 0; i < NV * 32; ++i) vf::fence_reg(o[i]);
+    vf::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // V is N-major, 128-byte swizzled: SBO 1 KB (next 8 keys), LBO 8 KB
+      // (next 64 channels)
+      const uint64_t d =
+          vf::wg_desc_sw128(vs + kk * 2048, kBlockBytes, 1024);
+#pragma unroll
+      for (int t = 0; t < 3; ++t) vf::wgmma_rs<64 * NV>(o, p[t][kk], d);
+    }
+    vf::wg_commit();
+    vf::wg_wait<0>();
+#pragma unroll
+    for (int i = 0; i < NV * 32; ++i) vf::fence_reg(o[i]);
+    __syncthreads();  // every warp is done with V_j's slot
+    issue(2 * j + 4);
   }
 
 #pragma unroll
@@ -400,82 +451,115 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  float* ob = out + static_cast<size_t>(b) * S * C;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int c = n * 8 + t4 * 2;
-    if (c >= C) continue;
+  for (int i = 0; i < NV * 8; ++i) {
+    const int c = n0 + 8 * i + t4 * 2;
+    if (c >= n_end) continue;
     if (r0 < S)
-      *reinterpret_cast<float2*>(out + (static_cast<size_t>(b) * S + r0) * C +
-                                 c) = make_float2(o[n][0] * inv0,
-                                                  o[n][1] * inv0);
+      *reinterpret_cast<float2*>(ob + static_cast<size_t>(r0) * C + c) =
+          make_float2(o[4 * i] * inv0, o[4 * i + 1] * inv0);
     if (r1 < S)
-      *reinterpret_cast<float2*>(out + (static_cast<size_t>(b) * S + r1) * C +
-                                 c) = make_float2(o[n][2] * inv1,
-                                                  o[n][3] * inv1);
+      *reinterpret_cast<float2*>(ob + static_cast<size_t>(r1) * C + c) =
+          make_float2(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
   }
 }
 
-template <int CP>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int C, long long bstride, long long rstride,
-               float scale, cudaStream_t stream) {
-  constexpr int kSmem =
-      ((kMmaBQ + kMmaBK) * (CP + 8) + CP * (kMmaBK + 8)) * 2;
+// Shared memory of one block: Q, min(3, 2 * key tiles) ring slots and
+// the barriers.
+size_t wgmma_smem(int S, int C, int vb) {
+  const int qb = (C + kBlockCh - 1) / kBlockCh;
+  const int nloads = 2 * ((S + kWgKeys - 1) / kWgKeys);
+  const int slots = nloads < kWgSlots ? nloads : kWgSlots;
+  return static_cast<size_t>(kBlockBytes) * (qb + slots * (qb > vb ? qb : vb)) +
+         vf::kBarBytes;
+}
+
+// A (B, S, C) bf16 map with row stride `rstride` and batch stride
+// `bstride` (elements), boxes of 64 channels x 64 rows, 128-byte swizzled.
+bool encode_rows(CUtensorMap* map, const void* base, int B, int S, int C,
+                 long long bstride, long long rstride) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(C),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(rstride) * 2,
+                               static_cast<uint64_t>(bstride) * 2};
+  const uint32_t box[3] = {kBlockCh, kWgKeys, 1};
+  return vf::encode_bf16(map, base, 3, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int NV>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int B, int S, int C, int parts, int cpart, long long bstride,
+                 long long rstride, float scale, cudaStream_t stream) {
   static bool configured = false;  // once, so launches can be captured
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_mma<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmem);
+        attn_fwd_wgmma<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        227 * 1024);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((S + kMmaBQ - 1) / kMmaBQ, B);
-  attn_fwd_mma<CP><<<grid, kMmaThreads, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), S, C,
-      bstride, rstride, scale);
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i)
+    if (!encode_rows(&maps[i], bases[i], B, S, C, bstride, rstride))
+      return cudaErrorInvalidValue;
+  const dim3 grid((S + kWgQ - 1) / kWgQ, parts, B);
+  attn_fwd_wgmma<NV><<<grid, kWgThreads, wgmma_smem(S, C, NV), stream>>>(
+      maps[0], maps[1], maps[2], static_cast<float*>(out), S, C, cpart,
+      scale);
   return cudaGetLastError();
 }
 
-// The mma path reads 16-byte chunks: C, both strides and the three base
-// pointers must keep every row 16-byte aligned.
-bool mma_fits(const void* q, const void* k, const void* v, int C,
-              long long bstride, long long rstride) {
-  return C % 8 == 0 && C <= kMmaMaxC && rstride % 8 == 0 &&
+// The wgmma path's tensor maps need 16-byte strides and base pointers.
+bool wgmma_fits(const void* q, const void* k, const void* v, int C,
+                long long bstride, long long rstride) {
+  return C % 8 == 0 && C <= kWgMaxC && rstride % 8 == 0 &&
          bstride % 8 == 0 && vf::aligned(q, 16) && vf::aligned(k, 16) &&
          vf::aligned(v, 16);
 }
 
-int dispatch_mma(const void* q, const void* k, const void* v, void* out,
-                 int B, int S, int C, long long bstride, long long rstride,
-                 float scale, cudaStream_t st) {
-#define VF_MMA_CASE(CP)                                                      \
-  if (C <= CP)                                                               \
-    return launch_mma<CP>(q, k, v, out, B, S, C, bstride, rstride, scale, st);
-  VF_MMA_CASE(16)
-  VF_MMA_CASE(32)
-  VF_MMA_CASE(64)
-  VF_MMA_CASE(96)
-  VF_MMA_CASE(128)
-  VF_MMA_CASE(192)
-  VF_MMA_CASE(256)
-  VF_MMA_CASE(320)
-#undef VF_MMA_CASE
+// Channels a block owns for `parts` parts: ceil(C / parts) rounded up to
+// the 16-byte chunk (ops/attention.py attention_plan computes the same).
+int part_width(int C, int parts) { return ((C + parts - 1) / parts + 7) / 8 * 8; }
+
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
+                   int B, int S, int C, int parts, long long bstride,
+                   long long rstride, float scale, cudaStream_t st) {
+  if (parts < 1 || parts > 2) return cudaErrorInvalidValue;
+  const int cpart = part_width(C, parts);
+  const int nv = (cpart + kBlockCh - 1) / kBlockCh;
+  if (nv > kWgMaxNV || wgmma_smem(S, C, nv) > 227 * 1024)
+    return cudaErrorInvalidValue;
+#define VF_WG_CASE(N)                                                       \
+  if (nv == N)                                                              \
+    return launch_wgmma<N>(q, k, v, out, B, S, C, parts, cpart, bstride,    \
+                           rstride, scale, st);
+  VF_WG_CASE(1)
+  VF_WG_CASE(2)
+  VF_WG_CASE(3)
+#undef VF_WG_CASE
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// `parts`: blocks along the output channels per (row, 64 queries) on the
+// tensor-core path (1 or 2; ops/attention.py attention_plan); the
+// CUDA-core path ignores it.
 extern "C" int vf_attention_fwd(const void* q, const void* k, const void* v,
                                 void* out, int B, int S, int C,
                                 long long bstride, long long rstride,
-                                float scale, int dtype, void* stream) {
+                                float scale, int parts, int dtype,
+                                void* stream) {
   if (B < 1 || S < 1 || C < 1 || B > 65535) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == vf::kBFloat16) {
-    if (mma_fits(q, k, v, C, bstride, rstride))
-      return dispatch_mma(q, k, v, out, B, S, C, bstride, rstride, scale, st);
+    if (wgmma_fits(q, k, v, C, bstride, rstride))
+      return dispatch_wgmma(q, k, v, out, B, S, C, parts, bstride, rstride,
+                            scale, st);
     return dispatch<__nv_bfloat16>(q, k, v, out, B, S, C, bstride, rstride,
                                    scale, st);
   }

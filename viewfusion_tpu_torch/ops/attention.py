@@ -19,7 +19,7 @@ from torch.autograd.function import once_differentiable
 from viewfusion_tpu_torch import _native
 
 __all__ = ["spatial_self_attention", "spatial_self_attention_reference",
-           "spatial_self_attention_backward"]
+           "spatial_self_attention_backward", "attention_plan"]
 
 
 def _probs(qf, kf, scale):
@@ -45,6 +45,27 @@ def spatial_self_attention_backward(q, k, v, g, scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# K3's tensor-core path: a block (one warpgroup) owns 64 queries of a row
+# and one of `parts` slices of the output channels (csrc/attention.cu)
+_QUERIES_PER_BLOCK = 64
+_MAX_PART_CHANNELS = 192
+
+
+def attention_plan(b: int, s: int, c: int) -> dict:
+    """Work units of K3's bf16 (wgmma) path for (B, S, C): ``q_tiles``
+    blocks of 64 queries per row, ``parts`` blocks along the output
+    channels, each owning ``part_width`` channels (a multiple of 8:
+    16-byte rows), ``blocks`` in all.  Two parts only where one
+    block's f32 output accumulator would pass 192 channels (C = 320 at
+    the mid block): each part fetches all of K again."""
+    q_tiles = -(-s // _QUERIES_PER_BLOCK)
+    parts = 2 if c > _MAX_PART_CHANNELS else 1
+    per_part = -(-c // parts)
+    part_width = -(-per_part // 8) * 8
+    return {"q_tiles": q_tiles, "parts": parts, "part_width": part_width,
+            "blocks": b * q_tiles * parts}
+
+
 def _launch(q, k, v, scale):
     code = _native.dtype_code(q.dtype, "spatial_self_attention")
     for name, t in (("k", k), ("v", v)):
@@ -58,10 +79,11 @@ def _launch(q, k, v, scale):
                          "contiguous")
     b, s, c = q.shape
     lib = _native.library()
+    parts = attention_plan(b, s, c)["parts"]
     out = torch.empty((b, s, c), device=q.device, dtype=torch.float32)
     err = lib.vf_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, c,
-        q.stride(0), q.stride(1), float(scale), code,
+        q.stride(0), q.stride(1), float(scale), parts, code,
         _native.stream_ptr(q.device))
     _native.check(err, "spatial_self_attention")
     spatial_self_attention.launches += 1

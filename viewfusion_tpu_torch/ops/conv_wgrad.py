@@ -28,7 +28,8 @@ from torch.autograd.function import once_differentiable
 
 from viewfusion_tpu_torch import _native
 
-__all__ = ["conv3x3_wgrad", "conv3x3_wgrad_reference", "conv3x3"]
+__all__ = ["conv3x3_wgrad", "conv3x3_wgrad_reference", "conv3x3",
+           "wgrad_plan"]
 
 _IMPLS = ("library", "kernel")
 
@@ -54,12 +55,57 @@ def conv3x3_wgrad_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps).reshape(3, 3, cin, cout)
 
 
-def _splits(device: torch.device, shape, dtype_code: int) -> int:
-    n = _native.library().vf_conv3x3_wgrad_splits(*shape, dtype_code,
-                                                   _native.sm_count(device))
-    if n < 1:
-        raise ValueError(f"conv3x3_wgrad: shape {shape} refused")
-    return n
+# K4's work split (csrc/conv_wgrad.cu): chunks of about 128 pixels (TR
+# image rows x TW columns) summed in order by `splits` blocks per output
+# tile, the splits summed in a second pass
+_CHUNK_PIXELS = 128
+_MAX_CHUNK_W = 64
+_WG_TILE = 64      # wgmma path: Cin and Cout per block
+_F32_TILE = 32     # f32 path: Cin and Cout per block
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wgrad_plan(b: int, h: int, w: int, cin: int, cout: int, dtype,
+               sm_count: int) -> dict:
+    """K4's path and work split for x (B, H, W, Cin), g (B, H, W, Cout).
+
+    ``path``: "wgmma" (bf16 with Cin and Cout multiples of 8), "mma"
+    (bf16 with ragged channels) or "f32".  Chunks are ``tr`` x ``tw``
+    pixels (``n_chunks`` in all); ``splits`` blocks per output tile
+    (``tiles``) sum ``per_split`` consecutive chunks each.  The wgmma
+    path wants TW = 8 with TR even, or TW a multiple of 16 (a 16-pixel
+    k-slice never crosses an image row), and about one block per SM; the
+    others TR * TW a multiple of 16 and two blocks per SM."""
+    wgmma = dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0
+    if wgmma:
+        path = "wgmma"
+        tw = 8 if w <= 8 else min(_MAX_CHUNK_W, _cdiv(w, 16) * 16)
+        tr = _CHUNK_PIXELS // tw
+        tr = min(tr, _cdiv(h, 2) * 2) if tw == 8 else min(tr, h)
+        tiles = _cdiv(cin, _WG_TILE) * _cdiv(cout, _WG_TILE)
+        want = max(1, sm_count // tiles)
+    else:
+        path = "mma" if dtype == torch.bfloat16 else "f32"
+        tw = min(_MAX_CHUNK_W, _cdiv(w, 8) * 8)
+        tr = _CHUNK_PIXELS // tw
+        if (tr * tw) % 16:
+            tr -= 1  # TW = 8 (mod 16) needs an even TR
+        tr = max(1, min(tr, _cdiv(h, 2) * 2))
+        if path == "mma":
+            wm = 1 if cin <= 16 else (2 if cin <= 32 else 4)
+            wn = 1 if cout <= 16 else 2
+            tiles = _cdiv(cin, 16 * wm) * _cdiv(cout, 16 * wn)
+        else:
+            tiles = _cdiv(cin, _F32_TILE) * _cdiv(cout, _F32_TILE)
+        want = _cdiv(2 * sm_count, tiles)
+    n_chunks = b * _cdiv(h, tr) * _cdiv(w, tw)
+    per_split = _cdiv(n_chunks, min(want, n_chunks))
+    return {"path": path, "tr": tr, "tw": tw, "tiles": tiles,
+            "n_chunks": n_chunks, "splits": _cdiv(n_chunks, per_split),
+            "per_split": per_split}
 
 
 def _launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -72,14 +118,15 @@ def _launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     b, h, w, cin = x.shape
     cout = g.shape[3]
     shape = (b, h, w, cin, cout)
-    splits = _splits(x.device, shape, code)
+    plan = wgrad_plan(*shape, x.dtype, _native.sm_count(x.device))
+    splits = plan["splits"]
     dw = torch.empty((3, 3, cin, cout), device=x.device, dtype=torch.float32)
     ws = (torch.empty(splits * dw.numel(), device=x.device,
                       dtype=torch.float32) if splits > 1 else None)
     err = _native.library().vf_conv3x3_wgrad(
         x.data_ptr(), g.data_ptr(), dw.data_ptr(),
-        None if ws is None else ws.data_ptr(), *shape, splits, code,
-        _native.stream_ptr(x.device))
+        None if ws is None else ws.data_ptr(), *shape, plan["tr"],
+        plan["tw"], splits, code, _native.stream_ptr(x.device))
     _native.check(err, "conv3x3_wgrad")
     conv3x3_wgrad.launches += 1
     return dw

@@ -8,7 +8,9 @@ Phases (any failure raises and exits non-zero without the final line):
   2. build: the CUDA kernels from viewfusion_tpu_torch/csrc (nvcc, sm_90a);
   3. K1 GroupNorm(+SiLU) at every GroupNorm site of the paper UNet, found
      by hooks on the model, at the serving batch of 8 x 6 views, against
-     its plain version, with times;
+     its plain version, with times, two calls equal bit for bit, and each
+     site's plan (cluster size, rows staged of rows per block, and the
+     clusters the card holds at once);
   4. K3 attention at every attention site of the paper UNet, the same way,
      with each site's share of its bound and its ratio to SDPA;
   5. the full-width paper UNet in bf16 with the kernels against the same
@@ -21,8 +23,8 @@ Phases (any failure raises and exits non-zero without the final line):
   8. K2 GroupNorm(+SiLU) backward at every GroupNorm site of the paper
      UNet at the training batch (R = 98 rows: the stratified view counts
      of configs/small-tpu-1.yaml's batch of 28), bf16 and f32, against
-     its plain version, with times and the autograd backward of
-     F.silu(F.group_norm(x)) as the library yardstick;
+     its plain version, with times, each site's plan, and the autograd
+     backward of F.silu(F.group_norm(x)) as the library yardstick;
   9. one full-width bf16 packed training step (loss and every parameter
      gradient) through the kernels against the same step with the plain
      versions patched in;
@@ -43,9 +45,10 @@ Phases (any failure raises and exits non-zero without the final line):
  13. the conv3x3 op: one full-width bf16 packed training step with every
      stride-1 3x3 conv routed through conv3x3(impl="kernel") against the
      same step unpatched: the same loss, exactly one K4 launch per conv;
- 14. ancestral sampling, the third main path: K1 and K3 against their
-     plain versions at the GroupNorm and attention sites of this path's
-     28 packed rows (untimed); then the Trainer at the paper config
+ 14. ancestral sampling, the third main path: K1 (timed, with its plans)
+     and K3 (untimed) against their plain versions at the GroupNorm and
+     attention sites of this path's 28 packed rows; then the Trainer at
+     the paper config
      evaluates a batch of 8 (28 packed rows) with the reference's
      T = 2000 step chain (tpu.sampler ddpm) in 4 segments; the counters
      must rise by exactly the per-forward site counts times T;
@@ -99,7 +102,8 @@ from viewfusion_tpu_torch.ops.conv_wgrad import (conv3x3, conv3x3_wgrad,
                                                  conv3x3_wgrad_reference)
 from viewfusion_tpu_torch.ops.groupnorm import (
     group_norm_act, group_norm_act_backward,
-    group_norm_act_backward_reference, group_norm_act_reference)
+    group_norm_act_backward_reference, group_norm_act_reference,
+    group_norm_active_clusters, group_norm_plan)
 from viewfusion_tpu_torch.serving import ViewFusionService
 from viewfusion_tpu_torch.training.trainer import (Trainer,
                                                    global_packed_counts,
@@ -283,11 +287,25 @@ def sites(unet: UNet, rows: int, device):
     return gn, attn
 
 
+def plan_note(x, backward: bool = False) -> str:
+    """K1's (or K2's) plan for the (B, L, C) tensor x: cluster size, rows
+    staged of rows per block, and how many such clusters the card holds
+    at once."""
+    b, l, c = x.shape
+    plan = group_norm_plan(b, l, c, x.element_size(), 2 if backward else 1,
+                           _native.sm_count(x.device))
+    active = group_norm_active_clusters(plan, x.dtype, backward=backward)
+    return (f"plan: cluster {plan.cluster}, {plan.rows_staged}/"
+            f"{plan.rows_per_block} rows staged, {plan.threads} threads, "
+            f"{plan.smem} B, {active} clusters at once")
+
+
 def check_group_norm(gn_sites, groups: int, device, rows: int = ROWS,
                      timed: bool = True) -> dict:
     """K1 against its plain version at each site at ``rows`` rows (bf16,
-    plus one f32 shape); per-forward totals weight each site by its
-    count.  ``timed=False`` checks without timing."""
+    plus one f32 shape), two calls equal bit for bit; per-forward totals
+    weight each site by its count.  ``timed=False`` checks without
+    timing."""
     g = torch.Generator(device=device).manual_seed(SEED + 1)
     tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
                          "bound_bytes_ms", "max_abs_err"), 0.0)
@@ -302,8 +320,11 @@ def check_group_norm(gn_sites, groups: int, device, rows: int = ROWS,
         kw = dict(groups=groups, act=act)
         y, mean, rstd = group_norm_act(x, scale, bias, return_stats=True,
                                        **kw)
+        again = group_norm_act(x, scale, bias, return_stats=True, **kw)
         y_r, mean_r, rstd_r = group_norm_act_reference(x, scale, bias, **kw)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((y, mean, rstd), again)):
+            raise AssertionError(f"K1 {(l, c, act)} {dtype}: two calls differ")
         err = (y.float() - y_r.float()).abs().max().item()
         tol = (bf16_ulp(y_r.float().abs().max().item())
                if dtype == torch.bfloat16 else 1e-5)
@@ -313,7 +334,7 @@ def check_group_norm(gn_sites, groups: int, device, rows: int = ROWS,
         torch.testing.assert_close(rstd, rstd_r, rtol=1e-4, atol=1e-5)
         if not timed:
             say(f"K1 L={l} C={c} act={act} {str(dtype)[6:]} at {rows} rows:"
-                f" err {err:.3g} (tol {tol:.3g})")
+                f" err {err:.3g} (tol {tol:.3g}); {plan_note(x)}")
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             continue
 
@@ -336,7 +357,8 @@ def check_group_norm(gn_sites, groups: int, device, rows: int = ROWS,
             f"err {err:.3g} (tol {tol:.3g}) kernel {ms * 1e3:.1f} us "
             f"(eager call {eager_ms * 1e3:.1f} us) plain "
             f"{plain_ms * 1e3:.1f} us library {lib_ms * 1e3:.1f} us "
-            f"bound {bms * 1e3:.1f} us ({by}) = {bms / ms:.0%} of bound")
+            f"bound {bms * 1e3:.1f} us ({by}) = {bms / ms:.0%} of bound; "
+            f"{plan_note(x)}")
         add_site(tot, count, ms, plain_ms, lib_ms, bms, nbytes, err)
     return tot
 
@@ -580,7 +602,7 @@ def check_group_norm_backward(gn_sites, groups: int, device) -> dict:
         name = f"K2 L={l} C={c} act={act} {str(dtype)[6:]} x{count}"
         if not count:
             say(f"{name}: dx err {err:.3g} (tol {tol:.3g}), partials rel "
-                f"err {perr:.3g}, repeatable")
+                f"err {perr:.3g}, repeatable; {plan_note(x, backward=True)}")
             continue
         # the backward autograd runs for F.silu(F.group_norm(x4)) on
         # contiguous NCHW tensors: its two ATen ops, called directly (the
@@ -612,7 +634,7 @@ def check_group_norm_backward(gn_sites, groups: int, device) -> dict:
             f"{perr:.3g} kernel {ms * 1e3:.1f} us (eager call "
             f"{eager_ms * 1e3:.1f} us) plain {plain_ms * 1e3:.1f} us "
             f"library {lib_ms * 1e3:.1f} us bound {bms * 1e3:.1f} us ({by})"
-            f" = {bms / ms:.0%} of bound")
+            f" = {bms / ms:.0%} of bound; {plan_note(x, backward=True)}")
         add_site(tot, count, ms, plain_ms, lib_ms, bms, nbytes, err)
     return tot
 
@@ -935,9 +957,11 @@ def run_ancestral(device, k1_sites: int, k3_sites: int) -> dict:
     the paper config (seeded weights) evaluates a batch of ANCESTRAL_BATCH
     at the stratified view counts (R = 28 packed rows) with tpu.sampler
     ddpm, the T = 2000 steps of the active schedule in ANCESTRAL_SEGMENTS
-    segments.  K1 and K3 are first held against their plain versions at
-    the sites and row count of this path; then the counters must rise by
-    exactly the site counts per step."""
+    segments.  K1 (timed) and K3 are first held against their plain
+    versions at the sites and row count of this path; then the counters
+    must rise by exactly the site counts per step.  Returns the launches,
+    the kernels' errors at this path's sites and K1's per-forward totals
+    there."""
     cfg = train_config(chain_segments=ANCESTRAL_SEGMENTS)
     trainer = Trainer(cfg, device=device, seed=SEED)
     model = trainer._infer_model
@@ -957,8 +981,13 @@ def run_ancestral(device, k1_sites: int, k3_sites: int) -> dict:
                                                               k3_sites):
         raise AssertionError(f"sites at {len(si)} rows differ: {gn_sites}, "
                              f"{attn_sites}")
-    errs = {"k1": check_group_norm(gn_sites, cfg.unet.norm_groups, device,
-                                   rows=len(si), timed=False)["max_abs_err"],
+    k1 = check_group_norm(gn_sites, cfg.unet.norm_groups, device,
+                          rows=len(si))
+    k1["rows"] = len(si)
+    say(f"K1 per forward at {len(si)} rows: kernel {k1['ms']:.4f} ms, plain "
+        f"{k1['plain_ms']:.4f} ms, library {k1['library_ms']:.4f} ms, bound "
+        f"{k1['bound_ms']:.4f} ms")
+    errs = {"k1": k1["max_abs_err"],
             "k3": check_attention(attn_sites, device, rows=len(si),
                                   timed=False)["max_abs_err"]}
     gen =trainer._gen_inputs(batch["cond"], counts, batch["angle"], 0)[0]
@@ -986,7 +1015,7 @@ def run_ancestral(device, k1_sites: int, k3_sites: int) -> dict:
     say(f"launches on the ancestral path: K1 {launches['k1']}, K3 "
         f"{launches['k3']} over {steps} steps")
     profile_chain(trainer, batch)
-    return launches, errs
+    return launches, errs, k1
 
 
 def profile_chain(trainer: Trainer, batch: dict, steps: int = 10) -> None:
@@ -1181,7 +1210,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 14. ancestral sampling: the third main path
-    anc_launches, anc_errs = run_ancestral(device, k1_calls, k3_calls)
+    anc_launches, anc_errs, k1_anc = run_ancestral(device, k1_calls,
+                                                   k3_calls)
     for tot, key in ((k1, "k1"), (k3, "k3")):
         tot["max_abs_err"] = max(tot["max_abs_err"], anc_errs[key])
     torch.cuda.empty_cache()
@@ -1216,6 +1246,11 @@ def main() -> int:
                          else "operations"),
             "library_ms": tot["library_ms"], "per": per,
         })
+    kernels[0]["ancestral_forward"] = {
+        "per": f"one UNet forward at the ancestral chain's "
+               f"{k1_anc['rows']} packed rows",
+        **{k: k1_anc[k] for k in ("ms", "plain_ms", "library_ms",
+                                  "bound_ms")}}
     kernels.append({
         "name": "conv3x3_wgrad", "route": "cuda",
         "source": "viewfusion_tpu_torch/csrc/conv_wgrad.cu",

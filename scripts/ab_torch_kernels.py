@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Time K3 (attention) and K4 (3x3 conv weight gradient) of checkouts of the
-PyTorch/CUDA port at the paper UNet's sites, on one NVIDIA GPU.
+"""Time the kernels K1-K4 of checkouts of the PyTorch/CUDA port at the paper
+UNet's sites, on one NVIDIA GPU.
 
     python3 scripts/ab_torch_kernels.py --tree DIR [--tree DIR ...]
 
 For each DIR, in the order given and each in its own process, runs that
-checkout's own chip_smoke.py phase 4 (K3 at every attention site at 48
-rows) and phase 12 (K4 at every stride-1 3x3 conv site at R = 98 rows):
-the checks against the plain versions, the per-site lines, and one JSON
-line with the per-forward (K3) and per-step (K4) totals.  Each checkout
-builds its kernels into its own viewfusion_tpu_torch/_build.
+checkout's own chip_smoke.py phase 3 (K1 GroupNorm(+SiLU) at every
+GroupNorm site at 48 rows), phase 4 (K3 at every attention site at 48
+rows), phase 8 (K2, the GroupNorm(+SiLU) backward, at every GroupNorm
+site at R = 98 rows) and phase 12 (K4 at every stride-1 3x3 conv site at
+R = 98 rows): the checks against the plain versions, the per-site lines,
+and one JSON line with the per-forward (K1, K3) and per-step (K2, K4)
+totals.  Each checkout builds its kernels into its own
+viewfusion_tpu_torch/_build.
 
 To compare a parent commit with a change on one card, unpack the parent
 into a git-ignored directory and run the trees in turns:
@@ -43,13 +46,18 @@ def run_one(tree: str) -> int:
     device = torch.device("cuda")
     cs._native.library()
     unet = cs.paper_unet(device)
-    _, attn_sites = cs.sites(unet, cs.ROWS, device)
+    gn_sites, attn_sites = cs.sites(unet, cs.ROWS, device)
     conv_sites = cs.conv_sites(unet, cs.TRAIN_ROWS, device)
+    groups = unet.config.norm_groups
     del unet
     torch.cuda.empty_cache()
+    k1 = cs.check_group_norm(gn_sites, groups, device)
     k3 = cs.check_attention(attn_sites, device)
+    k2 = cs.check_group_norm_backward(gn_sites, groups, device)
+    torch.cuda.empty_cache()
     k4 = cs.check_conv_wgrad(conv_sites, device)
     print(json.dumps({"tree": tree, "card": cs.card_line(),
+                      "k1_per_forward": k1, "k2_per_step": k2,
                       "k3_per_forward": k3, "k4_per_step": k4}), flush=True)
     return 0
 

@@ -9,10 +9,12 @@ package, so it also runs where only PyTorch is installed:
 Shapes include ragged ones (channels per group 3 and 5, odd spatial
 sizes, token counts that are not a multiple of the 32-token tiles,
 channels that are not a multiple of 16) and the paper UNet's widths.
-The backward tests cover kernel K2 and the autograd Functions on the
-card, and a tiny UNet's gradients on the card against the CPU; the conv
-weight-gradient tests cover kernel K4 (ragged channels, 5 x 7 images,
-bf16 and f32) and the ``conv3x3`` op.
+The GroupNorm tests include the paper UNet's largest slices at R = 98
+rows, where K2's plan takes a 16-block cluster (bf16) or stages part of
+each block's rows (f32).  The backward tests cover kernel K2 and the
+autograd Functions on the card, and a tiny UNet's gradients on the card
+against the CPU; the conv weight-gradient tests cover kernel K4 (ragged
+channels, 5 x 7 images, bf16 and f32) and the ``conv3x3`` op.
 """
 
 import numpy as np
@@ -92,6 +94,26 @@ def test_group_norm_kernel_matches_plain(device, shape, act, dtype):
     torch.testing.assert_close(rstd, rstd_r, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 3, 6, 2), (3, 5, 7, 24, 8),
+                                   (48, 8, 8, 640, 32),
+                                   (5, 64, 64, 192, 32)])
+def test_group_norm_kernel_is_repeatable(device, shape, dtype):
+    """Two K1 calls give equal bits in y, mean and rstd: every block of
+    a cluster folds the partials in rank order, no atomics."""
+    b, h, w, c, g = shape
+    gen = torch.Generator(device=device).manual_seed(2)
+    x = (torch.randn((b, h * w, c), generator=gen, device=device) * 1.5
+         + 0.5).to(dtype)
+    scale = torch.randn((c,), generator=gen, device=device) * 0.5 + 1.0
+    bias = torch.randn((c,), generator=gen, device=device) * 0.5
+    outs = [group_norm_act(x, scale, bias, groups=g, act="silu",
+                           return_stats=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(*outs):
+        assert torch.equal(a, b_)
+
+
 def test_group_norm_kernel_rejects_what_it_does_not_take(device):
     x = torch.zeros((2, 4, 8), device=device)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -136,8 +158,10 @@ def test_attention_kernel_rejects_mismatched_inputs(device):
         spatial_self_attention(t, t, t, 1.0)
 
 
-# (B, H, W, C, G): the forward's shapes plus two paper sites at R = 98
-GN_BWD_SHAPES = GN_SHAPES + [(98, 64, 64, 64, 32), (98, 8, 8, 640, 32)]
+# (B, H, W, C, G): the forward's shapes plus paper sites at R = 98, among
+# them the two largest slices (4096 x 192 and 4096 x 128)
+GN_BWD_SHAPES = GN_SHAPES + [(98, 64, 64, 64, 32), (98, 8, 8, 640, 32),
+                             (98, 64, 64, 192, 32), (98, 64, 64, 128, 32)]
 
 
 def _gn_bwd_inputs(device, shape, act, dtype, seed=3):

@@ -1,11 +1,13 @@
-"""The host-side work plans of the port's tensor-core kernels, on the CPU.
+"""The host-side work plans of the port's kernels, on the CPU.
 
-``attention_plan`` (K3) and ``wgrad_plan`` (K4) decide the blocks the
-kernels launch.  At every main-path site of the paper UNet (found by
-hooks on the model, as ``chip_smoke.py`` finds them) and at the card
-tests' edge shapes, the plans must cover each query and output channel,
-or each pixel, exactly once, keep the shapes the kernels take, and fill
-the card's 132 SMs as their notes say.  Plain arithmetic: no card.
+``attention_plan`` (K3), ``wgrad_plan`` (K4) and ``group_norm_plan`` (K1
+and K2) decide the blocks the kernels launch.  At every main-path site
+of the paper UNet (found by hooks on the model, as ``chip_smoke.py``
+finds them) and at the card tests' edge shapes, the plans must cover
+each query and output channel, each pixel, or each row of a sample
+exactly once, keep the shapes the kernels take, fit a block's shared
+memory, and fill the card's 132 SMs as their notes say.  Plain
+arithmetic: no card.
 """
 
 from collections import Counter
@@ -16,9 +18,10 @@ import torch
 
 from viewfusion_tpu_torch.config import Config
 from viewfusion_tpu_torch.models import unet as unet_module
-from viewfusion_tpu_torch.models.unet import SelfAttention, UNet
+from viewfusion_tpu_torch.models.unet import GroupNormAct, SelfAttention, UNet
 from viewfusion_tpu_torch.ops.attention import attention_plan
 from viewfusion_tpu_torch.ops.conv_wgrad import wgrad_plan
+from viewfusion_tpu_torch.ops.groupnorm import group_norm_plan
 
 H100_SMS = 132
 ROWS = (28, 48, 98)  # ancestral chain, serving batch, training batch
@@ -29,12 +32,13 @@ PAPER_UNET = {"image_size": 64, "in_channel": 6, "out_channel": 6,
 
 @pytest.fixture(scope="module")
 def paper_sites():
-    """(S, C) attention sites and (H, W, Cin, Cout) stride-1 3x3 conv
-    sites of one paper-UNet forward, with their counts."""
+    """(S, C) attention sites, (H, W, Cin, Cout) stride-1 3x3 conv sites
+    and (L, C) GroupNorm sites of one paper-UNet forward, with their
+    counts."""
     cfg = Config.from_dict({"model": {"denoise_net_params": PAPER_UNET}})
     torch.manual_seed(0)
     unet = UNet(cfg.unet).eval()
-    attn, convs = Counter(), Counter()
+    attn, convs, norms = Counter(), Counter(), Counter()
     hooks = [m.register_forward_pre_hook(
         lambda m, a: attn.update([(a[0].shape[2] * a[0].shape[3],
                                    a[0].shape[1])]))
@@ -45,11 +49,15 @@ def paper_sites():
         for m in unet.modules()
         if isinstance(m, unet_module.Conv2d) and m.kernel_size == (3, 3)
         and m.stride == (1, 1)]
+    hooks += [m.register_forward_pre_hook(
+        lambda m, a: norms.update([(a[0].shape[2] * a[0].shape[3],
+                                    a[0].shape[1])]))
+        for m in unet.modules() if isinstance(m, GroupNormAct)]
     with torch.inference_mode():
         unet(torch.zeros((1, 64, 64, 6)), torch.zeros(1), torch.zeros(1))
     for h in hooks:
         h.remove()
-    return attn, convs
+    return attn, convs, norms
 
 
 def _attention_coverage(b, s, c, plan):
@@ -65,7 +73,7 @@ def _attention_coverage(b, s, c, plan):
 
 
 def test_attention_plan_at_the_paper_sites(paper_sites):
-    attn, _ = paper_sites
+    attn, _, _ = paper_sites
     assert attn == Counter({(256, 192): 7, (64, 320): 1})
     blocks = {}
     for rows in ROWS:
@@ -116,7 +124,7 @@ def _check_wgrad_plan(b, h, w, cin, cout, dtype):
 
 
 def test_wgrad_plan_at_the_paper_sites(paper_sites):
-    _, convs = paper_sites
+    _, convs, _ = paper_sites
     assert sum(convs.values()) == 65 and len(convs) == 22
     for (h, w, cin, cout) in convs:
         plan = _check_wgrad_plan(98, h, w, cin, cout, torch.bfloat16)
@@ -140,3 +148,82 @@ def test_wgrad_plan_covers_edge_shapes(shape, dtype):
     plan = _check_wgrad_plan(*shape, dtype)
     if dtype == torch.float32:
         assert plan["path"] == "f32"
+
+
+def _check_group_norm_plan(b, l, c, itemsize, n_tensors, align=16):
+    """K1's (one tensor) or K2's (x and g) plan for (B, L, C): every row
+    of a sample in exactly one block, staged chunks of whole sweeps of
+    the block's threads, one mbarrier per chunk, and the staged rows, the
+    threads' sums and the partials within a block's shared memory
+    (csrc/gn_cluster.cuh's layout)."""
+    plan = group_norm_plan(b, l, c, itemsize, n_tensors, H100_SMS, align)
+    hits = np.zeros(l, dtype=np.int32)
+    for rank in range(plan.cluster):
+        hits[rank * plan.rows_per_block:
+             (rank + 1) * plan.rows_per_block] += 1
+    assert (hits == 1).all()
+    assert plan.cluster in (1, 2, 4, 8, 16)  # 16 with the non-portable flag
+    assert plan.vec * itemsize <= 16 and c % plan.vec == 0
+    assert align % (plan.vec * itemsize) == 0
+    assert plan.bulk == (plan.vec * itemsize == 16)
+    nv = c // plan.vec
+    assert plan.threads % nv == 0 and plan.threads <= max(256, nv)
+    assert 0 <= plan.rows_staged <= plan.rows_per_block
+    assert plan.chunk_rows % (plan.threads // nv) == 0
+    assert -(-plan.rows_staged // plan.chunk_rows) <= 16
+    staged = -(-plan.rows_staged * c * itemsize * n_tensors // 16) * 16
+    need = (128 + staged + 4 * plan.threads * plan.vec
+            + 8 * c * (plan.cluster + 2))
+    assert need <= plan.smem <= 232_448
+    # blocks for at least half the SMs, unless a cluster of 8 is not
+    # enough
+    assert 2 * b * plan.cluster >= H100_SMS or plan.cluster >= min(8, l)
+    return plan
+
+
+@pytest.mark.parametrize("n_tensors", [1, 2], ids=["K1", "K2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", ROWS)
+def test_group_norm_plan_at_the_paper_sites(paper_sites, rows, dtype,
+                                            n_tensors):
+    _, _, norms = paper_sites
+    assert sum(norms.values()) == 69 and len(norms) == 17
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    for (l, c) in norms:
+        plan = _check_group_norm_plan(rows, l, c, itemsize, n_tensors)
+        if dtype == torch.bfloat16:  # the whole slice on chip
+            assert plan.rows_staged == plan.rows_per_block
+            assert plan.bulk
+    # the clusters written in csrc/groupnorm.cu's and groupnorm_bwd.cu's
+    # notes: the largest slices (1.5 MiB for K1, 3 MiB for K2 in bf16)
+    big = group_norm_plan(rows, 4096, 192, itemsize, n_tensors, H100_SMS)
+    if dtype == torch.bfloat16:
+        assert big.cluster == (8 if n_tensors == 1 else 16)
+
+
+# the card tests' GroupNorm shapes (tests/test_torch_port_cuda.py
+# GN_SHAPES and GN_BWD_SHAPES), (B, H, W, C)
+GN_EDGE_SHAPES = [(2, 8, 8, 64), (3, 5, 7, 24), (2, 4, 4, 40),
+                  (5, 64, 64, 192), (48, 8, 8, 640), (2, 3, 3, 6),
+                  (98, 64, 64, 64), (98, 8, 8, 640), (98, 64, 64, 192),
+                  (98, 64, 64, 128)]
+
+
+@pytest.mark.parametrize("n_tensors", [1, 2], ids=["K1", "K2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GN_EDGE_SHAPES)
+def test_group_norm_plan_covers_edge_shapes(shape, dtype, n_tensors):
+    b, h, w, c = shape
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    plan = _check_group_norm_plan(b, h * w, c, itemsize, n_tensors)
+    if (c * itemsize) % 16:  # rows of 12 or 24 bytes: no bulk copies
+        assert not plan.bulk
+
+
+@pytest.mark.parametrize("align", [2, 4, 8])
+def test_group_norm_plan_narrows_vectors_for_misaligned_data(align):
+    """An x that is not 16-byte aligned (a view at an odd offset) takes
+    vectors the alignment allows, and the threads stage its rows."""
+    plan = _check_group_norm_plan(4, 1024, 128, 2, 1, align=align)
+    assert plan.vec == align // 2 and not plan.bulk
+    assert plan.rows_staged == plan.rows_per_block

@@ -39,14 +39,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    # x, scale, bias, y, mean, rstd, ws1, ws2, B, L, C, G, splits, eps,
+    # x, scale, bias, y, mean, rstd, B, L, C, G, then the plan (cluster,
+    # rows_per_block, rows_staged, chunk_rows, threads, smem, vec), eps,
     # act, dtype, stream
-    "vf_group_norm_act_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _F, _I, _I, _P],
-    # x, g, scale, bias, mean, rstd, dx, dscale_p, dbias_p, ws1, ws2, B, L,
-    # C, G, splits, act, dtype, stream
-    "vf_group_norm_act_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _P],
+    "vf_group_norm_act_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # x, g, scale, bias, mean, rstd, dx, dscale_p, dbias_p, B, L, C, G,
+    # the plan, act, dtype, stream
+    "vf_group_norm_act_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P],
+    # cluster, threads, smem, vec, dtype, active (out)
+    "vf_group_norm_act_fwd_clusters": [_I, _I, _I, _I, _I, _P],
+    "vf_group_norm_act_bwd_clusters": [_I, _I, _I, _I, _I, _P],
     # q, k, v, out, B, S, C, batch_stride, row_stride, scale, parts, dtype,
     # stream
     "vf_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _F, _I, _I,

@@ -17,261 +17,222 @@
 // ~20 flop/byte ridge of f32 CUDA-core math over 3.35 TB/s.  The least
 // traffic is one read of x and one write of y.
 //
-// Design:
-//  * Threads run along the contiguous C axis with 16-byte vector accesses
-//    (8 bf16 or 4 f32 channels a thread), so a warp covers whole rows and
-//    every access is coalesced.  A group holds 2..20 channels, mostly not
-//    a power of two, so channels are folded into groups in shared memory
-//    rather than by lane shuffles.
-//  * A sample's statistics need all of its rows, and one block per sample
-//    fills only B of the 132 SMs (48 at the serving batch).  The rows of
-//    a sample are therefore split over `splits` blocks.  Pass 1
-//    (gn_stats) writes each block's per-channel partial sums to a small
-//    workspace (no atomics, so the result is deterministic); pass 2
-//    (gn_apply) folds the partials of its sample into group statistics
-//    and normalises its own rows.  x is read twice and y written once:
-//    1.5x the least traffic, less where the second read hits the 50 MB
-//    L2.  Keeping a sample's slice on chip between the two passes is
-//    left for a later change.
+// Design: one launch per call, one thread-block cluster per sample
+// (csrc/gn_cluster.cuh), so that x is read from device memory once, as
+// the TPU kernel holds a sample in VMEM.  A sample's slice (up to 1.5 MiB
+// in bf16 at the paper UNet's sites) does not fit one SM, but it fits a
+// cluster of up to 16 blocks of up to 227 KB each:
+//  * the sample's L rows are cut into `cluster` contiguous ranges, one
+//    per block; x is (B, L, C) contiguous, so a block's range is one
+//    contiguous byte range, staged into shared memory by 1-D bulk copies
+//    (cp.async.bulk) in up to 16 chunks, each completing on its own
+//    mbarrier, all started at once;
+//  * threads run along the contiguous C axis with 16-byte vector reads
+//    of the staged rows and add S1/S2 as each chunk lands;
+//  * each block folds its threads' sums into 2 * C f32 per-channel sums
+//    and stores them into its slot of every block's gather buffer
+//    through DSMEM (stores do not wait on the remote SM, loads would);
+//    after one cluster barrier every block adds the slots in rank order
+//    0..cluster-1, so that every block computes the same group
+//    statistics bit for bit (no atomics); rank 0 stores mean and rstd;
+//  * each block normalises its staged rows into y, with no second read
+//    of device memory.  SiLU divides with __fdividef (the f32
+//    reciprocal approximation, as __expf approximates the exponential):
+//    IEEE division took as long as the rest of the second pass.
+// The plan (ops/groupnorm.py: group_norm_plan) sizes the cluster: at
+// least one block for every other SM at 28, 48 and 98 rows (a cluster's
+// fixed costs, not bandwidth, bound the small sites), then as many blocks
+// as it takes to stage the whole slice, in half an SM's shared memory
+// where that can be (two blocks an SM), else in up to 227 KB; every bf16
+// site of the paper UNet is staged whole.  Where a slice does not fit
+// even 16 blocks (large f32 shapes), each block stages a prefix of its
+// rows and reads the rest from device memory in both passes, inside the
+// same launch.  Where rows are not 16-byte multiples (C * size of the
+// dtype) or x is not 16-byte aligned, the block's threads stage the rows
+// themselves with narrower vectors instead of bulk copies.
 
-#include "common.cuh"
+#include "gn_cluster.cuh"
 
 namespace {
 
-constexpr int kUnroll = 4;  // rows whose loads are in flight per thread
-
 template <typename T, int VEC>
-__global__ void gn_stats(const T* __restrict__ x, float* __restrict__ ws1,
-                         float* __restrict__ ws2, int L, int C, int splits,
-                         int rows_per_split) {
-  extern __shared__ float smem[];
-  const int nv = C / VEC;
-  const int rpi = blockDim.x / nv;  // rows covered per sweep of the block
-  const int tid = threadIdx.x;
-  const int lane_c = tid % nv;
-  const int r0 = tid / nv;
-  const int s = blockIdx.x, b = blockIdx.y;
-  const int row_end = min(L, (s + 1) * rows_per_split);
-  const T* xb = x + static_cast<size_t>(b) * L * C + lane_c * VEC;
+__global__ void __launch_bounds__(vf::kMaxThreads)
+    gn_fwd(const T* __restrict__ x, const float* __restrict__ scale,
+           const float* __restrict__ bias, T* __restrict__ y,
+           float* __restrict__ mean_out, float* __restrict__ rstd_out, int L,
+           int C, int G, int rows_per_block, int rows_staged, int chunk_rows,
+           float eps, int act) {
+  using V = vf::Vec<T, VEC>;
+  constexpr bool kBulk = VEC * sizeof(T) == 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  T* stage = reinterpret_cast<T*>(smem + vf::kBarBytes);
+  float* red = reinterpret_cast<float*>(
+      smem + vf::kBarBytes +
+      (static_cast<size_t>(rows_staged) * C * sizeof(T) + 15) / 16 * 16);
+  const int rank = static_cast<int>(cooperative_groups::this_cluster()
+                                        .block_rank());
+  const int n_blocks = static_cast<int>(cooperative_groups::this_cluster()
+                                            .num_blocks());
+  float* gather = red + blockDim.x * VEC;  // [n_blocks][2 * C]
+  float* csum = gather + 2 * C * n_blocks;
+  float* gstat = csum + 2 * C;  // [G] mean, [G] rstd
+  const int b = blockIdx.y;
+  const int nv = C / VEC, rpi = blockDim.x / nv, tid = threadIdx.x;
+  const int lane_c = tid % nv, r0 = tid / nv;
+  const int row0 = rank * rows_per_block;
+  const int rows = max(0, min(rows_per_block, L - row0));
+  const int staged = min(rows_staged, rows);
+  const T* xb = x + (static_cast<size_t>(b) * L + row0) * C + lane_c * VEC;
+  T* yb = y + (static_cast<size_t>(b) * L + row0) * C + lane_c * VEC;
+  V* sv = reinterpret_cast<V*>(stage + lane_c * VEC);  // row r at r * nv
+  auto gload = [&](int r) {
+    return *reinterpret_cast<const V*>(xb + static_cast<size_t>(r) * C);
+  };
 
+  if constexpr (kBulk) {
+    const T* src[1] = {x + (static_cast<size_t>(b) * L + row0) * C};
+    T* const dst[1] = {stage};
+    vf::stage_rows<T, 1>(bars, dst, src, staged, chunk_rows, C);
+  }
+  float vsc[VEC], vsh[VEC];  // scale and bias of this thread's channels
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    vsc[i] = scale[lane_c * VEC + i];
+    vsh[i] = bias[lane_c * VEC + i];
+  }
+
+  // pass 1: S1, S2 of this thread's VEC channels over its rows
   float a1[VEC], a2[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) a1[i] = a2[i] = 0.f;
-
-  int r = s * rows_per_split + r0;
-  for (; r + (kUnroll - 1) * rpi < row_end; r += kUnroll * rpi) {
-    vf::Vec<T, VEC> v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      v[u] = *reinterpret_cast<const vf::Vec<T, VEC>*>(
-          xb + static_cast<size_t>(r + u * rpi) * C);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float f = vf::to_f(v[u].v[i]);
-        a1[i] += f;
-        a2[i] += f * f;
-      }
-  }
-  for (; r < row_end; r += rpi) {
-    const vf::Vec<T, VEC> v = *reinterpret_cast<const vf::Vec<T, VEC>*>(
-        xb + static_cast<size_t>(r) * C);
+  auto add = [&](const V& v) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       const float f = vf::to_f(v.v[i]);
       a1[i] += f;
       a2[i] += f * f;
     }
-  }
-
-  float* red1 = smem;             // [rpi][C]
-  float* red2 = smem + rpi * C;   // [rpi][C]
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    red1[r0 * C + lane_c * VEC + i] = a1[i];
-    red2[r0 * C + lane_c * VEC + i] = a2[i];
-  }
-  __syncthreads();
-  float* o1 = ws1 + (static_cast<size_t>(b) * splits + s) * C;
-  float* o2 = ws2 + (static_cast<size_t>(b) * splits + s) * C;
-  for (int c = tid; c < C; c += blockDim.x) {
-    float t1 = 0.f, t2 = 0.f;
-    for (int k = 0; k < rpi; ++k) {
-      t1 += red1[k * C + c];
-      t2 += red2[k * C + c];
+  };
+  for (int k = 0; k * chunk_rows < staged; ++k) {
+    if constexpr (kBulk) vf::mbar_wait(&bars[k], 0);
+    const int end = min(staged, (k + 1) * chunk_rows);
+#pragma unroll 4
+    for (int r = k * chunk_rows + r0; r < end; r += rpi) {
+      if constexpr (kBulk) {
+        add(sv[r * nv]);
+      } else {  // this thread stages its own rows (and reads them back)
+        const V v = gload(r);
+        sv[r * nv] = v;
+        add(v);
+      }
     }
-    o1[c] = t1;
-    o2[c] = t2;
   }
-}
+#pragma unroll 4
+  for (int r = staged + r0; r < rows; r += rpi) add(gload(r));
 
-template <typename T, int VEC>
-__global__ void gn_apply(const T* __restrict__ x,
-                         const float* __restrict__ scale,
-                         const float* __restrict__ bias,
-                         const float* __restrict__ ws1,
-                         const float* __restrict__ ws2, T* __restrict__ y,
-                         float* __restrict__ mean_out,
-                         float* __restrict__ rstd_out, int L, int C, int G,
-                         int splits, int rows_per_split, float eps, int act) {
-  extern __shared__ float smem[];
-  float* ch1 = smem;          // [C] per-channel sums of the sample
-  float* ch2 = ch1 + C;       // [C]
-  float* sc = ch2 + C;        // [C] rstd * scale
-  float* sh = sc + C;         // [C] bias - mean * rstd * scale
-  float* gmean = sh + C;      // [G]
-  float* grstd = gmean + G;   // [G]
-  const int tid = threadIdx.x;
-  const int s = blockIdx.x, b = blockIdx.y;
-
-  for (int c = tid; c < C; c += blockDim.x) {
-    float t1 = 0.f, t2 = 0.f;
-    for (int k = 0; k < splits; ++k) {
-      t1 += ws1[(static_cast<size_t>(b) * splits + k) * C + c];
-      t2 += ws2[(static_cast<size_t>(b) * splits + k) * C + c];
-    }
-    ch1[c] = t1;
-    ch2[c] = t2;
-  }
+  // the sample's S1, S2 per channel, then per group
+  vf::push_block_sums<VEC>(a1, a2, red, gather, C, r0, lane_c, rpi);
+  for (int e = tid; e < 2 * C; e += blockDim.x)
+    csum[e] = vf::gathered_sum(gather, e, n_blocks, C);
   __syncthreads();
   const int cpg = C / G;
   const float n = static_cast<float>(L) * static_cast<float>(cpg);
   for (int g = tid; g < G; g += blockDim.x) {
     float s1 = 0.f, s2 = 0.f;
     for (int j = 0; j < cpg; ++j) {
-      s1 += ch1[g * cpg + j];
-      s2 += ch2[g * cpg + j];
+      s1 += csum[g * cpg + j];
+      s2 += csum[C + g * cpg + j];
     }
     const float mean = s1 / n;
     const float var = fmaxf(s2 / n - mean * mean, 0.f);
     const float rstd = rsqrtf(var + eps);
-    gmean[g] = mean;
-    grstd[g] = rstd;
-    if (s == 0) {
+    gstat[g] = mean;
+    gstat[G + g] = rstd;
+    if (rank == 0 && mean_out != nullptr) {
       mean_out[b * G + g] = mean;
       rstd_out[b * G + g] = rstd;
     }
   }
   __syncthreads();
-  for (int c = tid; c < C; c += blockDim.x) {
-    const int g = c / cpg;
-    const float v = grstd[g] * scale[c];
-    sc[c] = v;
-    sh[c] = bias[c] - gmean[g] * v;
-  }
-  __syncthreads();
-
-  const int nv = C / VEC;
-  const int rpi = blockDim.x / nv;
-  const int lane_c = tid % nv;
-  const int r0 = tid / nv;
-  float vsc[VEC], vsh[VEC];
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    vsc[i] = sc[lane_c * VEC + i];
-    vsh[i] = sh[lane_c * VEC + i];
+  for (int i = 0; i < VEC; ++i) {  // sc = rstd * scale, sh = bias - mean * sc
+    const int g = (lane_c * VEC + i) / cpg;
+    vsc[i] *= gstat[G + g];
+    vsh[i] -= gstat[g] * vsc[i];
   }
-  const size_t base = static_cast<size_t>(b) * L * C + lane_c * VEC;
-  const int row_end = min(L, (s + 1) * rows_per_split);
-  auto normalize = [&](const vf::Vec<T, VEC>& v) {
-    vf::Vec<T, VEC> o;
+
+  // pass 2: y from the staged rows (the rest from device memory)
+  auto normalize = [&](const V& v, int r) {
+    V o;
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       float z = vf::to_f(v.v[i]) * vsc[i] + vsh[i];
-      if (act) z = z / (1.f + __expf(-z));
+      if (act) z = __fdividef(z, 1.f + __expf(-z));
       o.v[i] = vf::from_f<T>(z);
     }
-    return o;
+    *reinterpret_cast<V*>(yb + static_cast<size_t>(r) * C) = o;
   };
-  int r = s * rows_per_split + r0;
-  for (; r + (kUnroll - 1) * rpi < row_end; r += kUnroll * rpi) {
-    vf::Vec<T, VEC> v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      v[u] = *reinterpret_cast<const vf::Vec<T, VEC>*>(
-          x + base + static_cast<size_t>(r + u * rpi) * C);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      *reinterpret_cast<vf::Vec<T, VEC>*>(
-          y + base + static_cast<size_t>(r + u * rpi) * C) = normalize(v[u]);
-  }
-  for (; r < row_end; r += rpi) {
-    const size_t off = base + static_cast<size_t>(r) * C;
-    *reinterpret_cast<vf::Vec<T, VEC>*>(y + off) =
-        normalize(*reinterpret_cast<const vf::Vec<T, VEC>*>(x + off));
-  }
+#pragma unroll 4
+  for (int r = r0; r < staged; r += rpi) normalize(sv[r * nv], r);
+#pragma unroll 4
+  for (int r = staged + r0; r < rows; r += rpi) normalize(gload(r), r);
 }
 
-template <typename T, int VEC>
-int launch(const void* x, const void* scale, const void* bias, void* y,
-           void* mean, void* rstd, void* ws1, void* ws2, int B, int L, int C,
-           int G, int splits, float eps, int act, cudaStream_t stream) {
-  const int nv = C / VEC;
-  if (nv > 1024) return cudaErrorInvalidValue;
-  const int rpi = nv >= 256 ? 1 : 256 / nv;
-  const int threads = nv * rpi;
-  const int rows_per_split = (L + splits - 1) / splits;
-  const size_t smem1 = 2 * static_cast<size_t>(rpi) * C * sizeof(float);
-  const size_t smem2 = (4 * static_cast<size_t>(C) + 2 * G) * sizeof(float);
-  if (smem1 > 48 * 1024 || smem2 > 48 * 1024) return cudaErrorInvalidValue;
-  const dim3 grid(splits, B);
-  gn_stats<T, VEC><<<grid, threads, smem1, stream>>>(
-      static_cast<const T*>(x), static_cast<float*>(ws1),
-      static_cast<float*>(ws2), L, C, splits, rows_per_split);
-  gn_apply<T, VEC><<<grid, threads, smem2, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<const float*>(ws1),
-      static_cast<const float*>(ws2), static_cast<T*>(y),
-      static_cast<float*>(mean), static_cast<float*>(rstd), L, C, G, splits,
-      rows_per_split, eps, act);
-  return cudaGetLastError();
-}
-
-// Widest vector (at most 16 bytes) that divides C and keeps every row of
-// x and y aligned.
 template <typename T>
-int dispatch(const void* x, const void* scale, const void* bias, void* y,
-             void* mean, void* rstd, void* ws1, void* ws2, int B, int L,
-             int C, int G, int splits, float eps, int act,
-             cudaStream_t stream) {
-  constexpr int kMax = 16 / sizeof(T);
-  auto fits = [&](int vec) {
-    const int bytes = vec * static_cast<int>(sizeof(T));
-    return C % vec == 0 && vf::aligned(x, bytes) && vf::aligned(y, bytes);
-  };
-  if (kMax >= 8 && fits(8))
-    return launch<T, (kMax >= 8 ? 8 : 1)>(x, scale, bias, y, mean, rstd, ws1,
-                                           ws2, B, L, C, G, splits, eps, act,
-                                           stream);
-  if (fits(4))
-    return launch<T, 4>(x, scale, bias, y, mean, rstd, ws1, ws2, B, L, C, G,
-                        splits, eps, act, stream);
-  if (fits(2))
-    return launch<T, 2>(x, scale, bias, y, mean, rstd, ws1, ws2, B, L, C, G,
-                        splits, eps, act, stream);
-  return launch<T, 1>(x, scale, bias, y, mean, rstd, ws1, ws2, B, L, C, G,
-                      splits, eps, act, stream);
+auto kernel_for(int vec) -> void (*)(const T*, const float*, const float*,
+                                     T*, float*, float*, int, int, int, int,
+                                     int, int, float, int) {
+  if (vec == 8 && sizeof(T) == 2) return gn_fwd<T, (sizeof(T) == 2 ? 8 : 4)>;
+  if (vec == 4) return gn_fwd<T, 4>;
+  if (vec == 2) return gn_fwd<T, 2>;
+  return gn_fwd<T, 1>;
+}
+
+template <typename T>
+int dispatch(const vf::GnPlan& p, const void* x, const void* scale,
+             const void* bias, void* y, void* mean, void* rstd, int B, int L,
+             int C, int G, float eps, int act, cudaStream_t stream) {
+  if (!vf::gn_check_plan(p, B, L, C, G, sizeof(T), 1, {x, y}))
+    return cudaErrorInvalidValue;
+  return vf::gn_launch(kernel_for<T>(p.vec), p, B, stream,
+                       static_cast<const T*>(x),
+                       static_cast<const float*>(scale),
+                       static_cast<const float*>(bias), static_cast<T*>(y),
+                       static_cast<float*>(mean), static_cast<float*>(rstd),
+                       L, C, G, p.rows_per_block, p.rows_staged,
+                       p.chunk_rows, eps, act);
 }
 
 }  // namespace
 
-extern "C" int vf_group_norm_act_fwd(const void* x, const void* scale,
-                                     const void* bias, void* y, void* mean,
-                                     void* rstd, void* ws1, void* ws2, int B,
-                                     int L, int C, int G, int splits,
-                                     float eps, int act, int dtype,
-                                     void* stream) {
-  if (B < 1 || L < 1 || C < 1 || G < 1 || C % G != 0 || splits < 1 ||
-      splits > L)
-    return cudaErrorInvalidValue;
+// mean and rstd may both be null (the statistics are then not stored).
+extern "C" int vf_group_norm_act_fwd(
+    const void* x, const void* scale, const void* bias, void* y, void* mean,
+    void* rstd, int B, int L, int C, int G, int cluster, int rows_per_block,
+    int rows_staged, int chunk_rows, int threads, int smem, int vec,
+    float eps, int act, int dtype, void* stream) {
+  const vf::GnPlan p{cluster, rows_per_block, rows_staged, chunk_rows,
+                     threads, smem, vec};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == vf::kBFloat16)
-    return dispatch<__nv_bfloat16>(x, scale, bias, y, mean, rstd, ws1, ws2, B,
-                                   L, C, G, splits, eps, act, st);
+    return dispatch<__nv_bfloat16>(p, x, scale, bias, y, mean, rstd, B, L,
+                                   C, G, eps, act, st);
   if (dtype == vf::kFloat32)
-    return dispatch<float>(x, scale, bias, y, mean, rstd, ws1, ws2, B, L, C,
-                           G, splits, eps, act, st);
+    return dispatch<float>(p, x, scale, bias, y, mean, rstd, B, L, C, G, eps,
+                           act, st);
+  return cudaErrorInvalidValue;
+}
+
+// How many clusters of a plan's shape the card holds at once.
+extern "C" int vf_group_norm_act_fwd_clusters(int cluster, int threads,
+                                              int smem, int vec, int dtype,
+                                              int* active) {
+  const vf::GnPlan p{cluster, 1, 0, 1, threads, smem, vec};
+  if (dtype == vf::kBFloat16)
+    return vf::gn_active_clusters(kernel_for<__nv_bfloat16>(vec), p, active);
+  if (dtype == vf::kFloat32)
+    return vf::gn_active_clusters(kernel_for<float>(vec), p, active);
   return cudaErrorInvalidValue;
 }
 

@@ -23,298 +23,235 @@
 // ~20 flop/byte ridge of f32 CUDA-core math over 3.35 TB/s.  The least
 // traffic is one read of x and g and one write of dx.
 //
-// Design: K1's row-split scheme (csrc/groupnorm.cu).  A TPU grid step
-// holds a whole sample (up to 1.5 MB) in VMEM with dy and xhat kept in
-// scratch between its two passes; an SM cannot, and one block per sample
-// would fill B of the 132 SMs.  The rows of a sample are split over
-// `splits` blocks:
-//  * gn_bwd_reduce re-derives dy and xhat from x, g and the statistics
-//    and writes each block's per-channel sums of dy and dy * xhat to a
-//    (B, splits, C) workspace (no atomics: deterministic);
-//  * gn_bwd_apply sums its sample's splits into the (B, C) partials
-//    (block 0 stores them), folds them into the per-group a and b in
-//    shared memory (channels per group are 2..20, rarely a power of two),
-//    re-reads x and g and writes dx.
-// x and g are read twice and dx written once: 5 tensors against the
-// least 3, so at most 60% of the byte bound, less the part of the second
-// read that hits the 50 MB L2.  Threads run along the contiguous C axis
-// with 16-byte vector accesses, as in K1.
+// Design: K1's cluster scheme (csrc/groupnorm.cu, csrc/gn_cluster.cuh),
+// one launch per call.  The TPU kernel holds a sample in VMEM and keeps
+// dy and xhat in f32 scratch between its two passes; here one cluster per
+// sample stages its rows of x and g (bf16 or f32, as they arrive: half
+// the shared memory of f32 dy and xhat) with two streams of 1-D bulk
+// copies into one set of chunks, and both passes re-derive dy and xhat from
+// the staged rows (a few FMAs, one __expf and one __fdividef an element:
+// the sigmoid's division is the f32 reciprocal approximation, as in K1):
+//  * pass 1 adds dbias = sum dy and dscale = sum dy * xhat per channel as
+//    each chunk lands;
+//  * the blocks exchange their per-channel sums through DSMEM, added in
+//    rank order (every block gets the same bits; no atomics, no
+//    workspace); rank 0 stores the per-sample (B, C) partials;
+//  * every block folds them into the per-group a and b and writes dx
+//    from its staged x and g, with no second read of device memory.
+// The plan (ops/groupnorm.py: group_norm_plan, two tensors) takes a
+// cluster of up to 16 blocks (non-portable above 8) to stage the whole
+// slice (3 MiB at the paper UNet's largest site in bf16); where even that
+// does not fit, each block stages a prefix of its rows and reads the rest
+// from device memory in both passes, inside the same launch.
 
-#include "common.cuh"
+#include "gn_cluster.cuh"
 
 namespace {
 
-constexpr int kUnroll = 4;  // rows whose loads are in flight per thread
-
 __device__ __forceinline__ float act_grad(float z, int act) {
   if (!act) return 1.f;
-  const float s = 1.f / (1.f + __expf(-z));
+  const float s = __fdividef(1.f, 1.f + __expf(-z));
   return s * (1.f + z * (1.f - s));
 }
 
-// Per-thread constants of the VEC channels a thread owns.
-template <int VEC>
-struct ChannelConsts {
-  float rs[VEC], mr[VEC], sc[VEC], sh[VEC];
-
-  __device__ void load(const float* scale, const float* bias,
-                       const float* mean, const float* rstd, int b, int c0,
-                       int G, int cpg) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const int c = c0 + i;
-      const int g = b * G + c / cpg;
-      const float r = rstd[g], m = mean[g];
-      rs[i] = r;
-      mr[i] = m * r;
-      sc[i] = r * scale[c];
-      sh[i] = bias[c] - m * sc[i];
-    }
-  }
-};
-
 template <typename T, int VEC>
-__global__ void gn_bwd_reduce(const T* __restrict__ x,
-                              const T* __restrict__ g,
-                              const float* __restrict__ scale,
-                              const float* __restrict__ bias,
-                              const float* __restrict__ mean,
-                              const float* __restrict__ rstd,
-                              float* __restrict__ ws1,
-                              float* __restrict__ ws2, int L, int C, int G,
-                              int splits, int rows_per_split, int act) {
-  extern __shared__ float smem[];
-  const int nv = C / VEC;
-  const int rpi = blockDim.x / nv;  // rows covered per sweep of the block
-  const int tid = threadIdx.x;
-  const int lane_c = tid % nv;
-  const int r0 = tid / nv;
-  const int s = blockIdx.x, b = blockIdx.y;
-  const int row_end = min(L, (s + 1) * rows_per_split);
-  const size_t base = static_cast<size_t>(b) * L * C + lane_c * VEC;
+__global__ void __launch_bounds__(vf::kMaxThreads)
+    gn_bwd(const T* __restrict__ x, const T* __restrict__ g,
+           const float* __restrict__ scale, const float* __restrict__ bias,
+           const float* __restrict__ mean, const float* __restrict__ rstd,
+           T* __restrict__ dx, float* __restrict__ dscale_p,
+           float* __restrict__ dbias_p, int L, int C, int G,
+           int rows_per_block, int rows_staged, int chunk_rows, int act) {
+  using V = vf::Vec<T, VEC>;
+  constexpr bool kBulk = VEC * sizeof(T) == 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  T* stage_x = reinterpret_cast<T*>(smem + vf::kBarBytes);
+  T* stage_g = stage_x + static_cast<size_t>(rows_staged) * C;
+  float* red = reinterpret_cast<float*>(
+      smem + vf::kBarBytes +
+      (2 * static_cast<size_t>(rows_staged) * C * sizeof(T) + 15) / 16 * 16);
+  const int rank = static_cast<int>(cooperative_groups::this_cluster()
+                                        .block_rank());
+  const int n_blocks = static_cast<int>(cooperative_groups::this_cluster()
+                                            .num_blocks());
+  float* gather = red + blockDim.x * VEC;  // [n_blocks][2 * C]
+  float* csum = gather + 2 * C * n_blocks;
+  float* gstat = csum + 2 * C;  // [G] a, [G] b
+  const int b = blockIdx.y;
+  const int nv = C / VEC, rpi = blockDim.x / nv, tid = threadIdx.x;
+  const int lane_c = tid % nv, r0 = tid / nv;
+  const int cpg = C / G;
+  const int row0 = rank * rows_per_block;
+  const int rows = max(0, min(rows_per_block, L - row0));
+  const int staged = min(rows_staged, rows);
+  const size_t first = (static_cast<size_t>(b) * L + row0) * C;
+  const T* xb = x + first + lane_c * VEC;
+  const T* gb = g + first + lane_c * VEC;
+  T* dxb = dx + first + lane_c * VEC;
+  V* sx = reinterpret_cast<V*>(stage_x + lane_c * VEC);  // row r at r * nv
+  V* sg = reinterpret_cast<V*>(stage_g + lane_c * VEC);
+  auto gload = [&](const T* p, int r) {
+    return *reinterpret_cast<const V*>(p + static_cast<size_t>(r) * C);
+  };
 
-  ChannelConsts<VEC> k;
-  k.load(scale, bias, mean, rstd, b, lane_c * VEC, G, C / G);
+  if constexpr (kBulk) {
+    const T* src[2] = {x + first, g + first};
+    T* const dst[2] = {stage_x, stage_g};
+    vf::stage_rows<T, 2>(bars, dst, src, staged, chunk_rows, C);
+  }
+
+  // this thread's channels: rstd, mean * rstd, sc, sh
+  float rs[VEC], mr[VEC], sc[VEC], sh[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int c = lane_c * VEC + i;
+    const int grp = b * G + c / cpg;
+    const float r = rstd[grp], m = mean[grp];
+    rs[i] = r;
+    mr[i] = m * r;
+    sc[i] = r * scale[c];
+    sh[i] = bias[c] - m * sc[i];
+  }
+
+  // pass 1: sum dy and sum dy * xhat of this thread's channels
   float a1[VEC], a2[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) a1[i] = a2[i] = 0.f;
-  auto accumulate = [&](const vf::Vec<T, VEC>& xv,
-                        const vf::Vec<T, VEC>& gv) {
+  auto add = [&](const V& xv, const V& gv) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       const float xf = vf::to_f(xv.v[i]);
-      const float dy = vf::to_f(gv.v[i]) * act_grad(xf * k.sc[i] + k.sh[i],
-                                                    act);
+      const float dy = vf::to_f(gv.v[i]) * act_grad(xf * sc[i] + sh[i], act);
       a1[i] += dy;
-      a2[i] += dy * (xf * k.rs[i] - k.mr[i]);
+      a2[i] += dy * (xf * rs[i] - mr[i]);
     }
   };
-
-  int r = s * rows_per_split + r0;
-  for (; r + (kUnroll - 1) * rpi < row_end; r += kUnroll * rpi) {
-    vf::Vec<T, VEC> xv[kUnroll], gv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const size_t off = base + static_cast<size_t>(r + u * rpi) * C;
-      xv[u] = *reinterpret_cast<const vf::Vec<T, VEC>*>(x + off);
-      gv[u] = *reinterpret_cast<const vf::Vec<T, VEC>*>(g + off);
+  for (int k = 0; k * chunk_rows < staged; ++k) {
+    if constexpr (kBulk) vf::mbar_wait(&bars[k], 0);
+    const int end = min(staged, (k + 1) * chunk_rows);
+#pragma unroll 4
+    for (int r = k * chunk_rows + r0; r < end; r += rpi) {
+      if constexpr (kBulk) {
+        add(sx[r * nv], sg[r * nv]);
+      } else {  // this thread stages its own rows (and reads them back)
+        const V xv = gload(xb, r), gv = gload(gb, r);
+        sx[r * nv] = xv;
+        sg[r * nv] = gv;
+        add(xv, gv);
+      }
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) accumulate(xv[u], gv[u]);
   }
-  for (; r < row_end; r += rpi) {
-    const size_t off = base + static_cast<size_t>(r) * C;
-    accumulate(*reinterpret_cast<const vf::Vec<T, VEC>*>(x + off),
-               *reinterpret_cast<const vf::Vec<T, VEC>*>(g + off));
-  }
+#pragma unroll 4
+  for (int r = staged + r0; r < rows; r += rpi)
+    add(gload(xb, r), gload(gb, r));
 
-  float* red1 = smem;            // [rpi][C]
-  float* red2 = smem + rpi * C;  // [rpi][C]
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    red1[r0 * C + lane_c * VEC + i] = a1[i];
-    red2[r0 * C + lane_c * VEC + i] = a2[i];
-  }
-  __syncthreads();
-  float* o1 = ws1 + (static_cast<size_t>(b) * splits + s) * C;
-  float* o2 = ws2 + (static_cast<size_t>(b) * splits + s) * C;
-  for (int c = tid; c < C; c += blockDim.x) {
-    float t1 = 0.f, t2 = 0.f;
-    for (int j = 0; j < rpi; ++j) {
-      t1 += red1[j * C + c];
-      t2 += red2[j * C + c];
-    }
-    o1[c] = t1;
-    o2[c] = t2;
-  }
-}
-
-template <typename T, int VEC>
-__global__ void gn_bwd_apply(const T* __restrict__ x,
-                             const T* __restrict__ g,
-                             const float* __restrict__ scale,
-                             const float* __restrict__ bias,
-                             const float* __restrict__ mean,
-                             const float* __restrict__ rstd,
-                             const float* __restrict__ ws1,
-                             const float* __restrict__ ws2,
-                             T* __restrict__ dx, float* __restrict__ dscale_p,
-                             float* __restrict__ dbias_p, int L, int C, int G,
-                             int splits, int rows_per_split, int act) {
-  extern __shared__ float smem[];
-  float* ch1 = smem;     // [C] sum of dy over the sample
-  float* ch2 = ch1 + C;  // [C] sum of dy * xhat
-  float* ga = ch2 + C;   // [G] a
-  float* gb = ga + G;    // [G] b
-  const int tid = threadIdx.x;
-  const int s = blockIdx.x, b = blockIdx.y;
-  const int cpg = C / G;
-
-  for (int c = tid; c < C; c += blockDim.x) {
-    float t1 = 0.f, t2 = 0.f;
-    for (int j = 0; j < splits; ++j) {
-      t1 += ws1[(static_cast<size_t>(b) * splits + j) * C + c];
-      t2 += ws2[(static_cast<size_t>(b) * splits + j) * C + c];
-    }
-    ch1[c] = t1;
-    ch2[c] = t2;
-    if (s == 0) {
-      dbias_p[static_cast<size_t>(b) * C + c] = t1;
-      dscale_p[static_cast<size_t>(b) * C + c] = t2;
-    }
+  // the sample's sums per channel (rank 0 stores them), times scale,
+  // then a and b per group, and each channel's rstd * a, rstd * b
+  vf::push_block_sums<VEC>(a1, a2, red, gather, C, r0, lane_c, rpi);
+  for (int e = tid; e < 2 * C; e += blockDim.x) {
+    const float t = vf::gathered_sum(gather, e, n_blocks, C);
+    const int c = e < C ? e : e - C;
+    if (rank == 0)
+      (e < C ? dbias_p : dscale_p)[static_cast<size_t>(b) * C + c] = t;
+    csum[e] = t * scale[c];
   }
   __syncthreads();
   const float n = static_cast<float>(L) * static_cast<float>(cpg);
   for (int grp = tid; grp < G; grp += blockDim.x) {
     float sa = 0.f, sb = 0.f;
     for (int j = 0; j < cpg; ++j) {
-      const int c = grp * cpg + j;
-      sa += ch1[c] * scale[c];
-      sb += ch2[c] * scale[c];
+      sa += csum[grp * cpg + j];
+      sb += csum[C + grp * cpg + j];
     }
-    ga[grp] = sa / n;
-    gb[grp] = sb / n;
+    gstat[grp] = sa / n;
+    gstat[G + grp] = sb / n;
   }
   __syncthreads();
-
-  const int nv = C / VEC;
-  const int rpi = blockDim.x / nv;
-  const int lane_c = tid % nv;
-  const int r0 = tid / nv;
-  ChannelConsts<VEC> k;
-  k.load(scale, bias, mean, rstd, b, lane_c * VEC, G, cpg);
   float ra[VEC], rb[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
     const int grp = (lane_c * VEC + i) / cpg;
-    ra[i] = k.rs[i] * ga[grp];
-    rb[i] = k.rs[i] * gb[grp];
+    ra[i] = rs[i] * gstat[grp];
+    rb[i] = rs[i] * gstat[G + grp];
   }
-  const size_t base = static_cast<size_t>(b) * L * C + lane_c * VEC;
-  const int row_end = min(L, (s + 1) * rows_per_split);
-  auto grad = [&](const vf::Vec<T, VEC>& xv, const vf::Vec<T, VEC>& gv) {
-    vf::Vec<T, VEC> o;
+
+  // pass 2: dx from the staged rows (the rest from device memory)
+  auto grad = [&](const V& xv, const V& gv, int r) {
+    V o;
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       const float xf = vf::to_f(xv.v[i]);
-      const float dy = vf::to_f(gv.v[i]) * act_grad(xf * k.sc[i] + k.sh[i],
-                                                    act);
-      const float xhat = xf * k.rs[i] - k.mr[i];
-      o.v[i] = vf::from_f<T>(dy * k.sc[i] - (xhat * rb[i] + ra[i]));
+      const float dy = vf::to_f(gv.v[i]) * act_grad(xf * sc[i] + sh[i], act);
+      const float xhat = xf * rs[i] - mr[i];
+      o.v[i] = vf::from_f<T>(dy * sc[i] - (xhat * rb[i] + ra[i]));
     }
-    return o;
+    *reinterpret_cast<V*>(dxb + static_cast<size_t>(r) * C) = o;
   };
-  int r = s * rows_per_split + r0;
-  for (; r + (kUnroll - 1) * rpi < row_end; r += kUnroll * rpi) {
-    vf::Vec<T, VEC> xv[kUnroll], gv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const size_t off = base + static_cast<size_t>(r + u * rpi) * C;
-      xv[u] = *reinterpret_cast<const vf::Vec<T, VEC>*>(x + off);
-      gv[u] = *reinterpret_cast<const vf::Vec<T, VEC>*>(g + off);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      *reinterpret_cast<vf::Vec<T, VEC>*>(
-          dx + base + static_cast<size_t>(r + u * rpi) * C) =
-          grad(xv[u], gv[u]);
-  }
-  for (; r < row_end; r += rpi) {
-    const size_t off = base + static_cast<size_t>(r) * C;
-    *reinterpret_cast<vf::Vec<T, VEC>*>(dx + off) =
-        grad(*reinterpret_cast<const vf::Vec<T, VEC>*>(x + off),
-             *reinterpret_cast<const vf::Vec<T, VEC>*>(g + off));
-  }
+#pragma unroll 4
+  for (int r = r0; r < staged; r += rpi) grad(sx[r * nv], sg[r * nv], r);
+#pragma unroll 4
+  for (int r = staged + r0; r < rows; r += rpi)
+    grad(gload(xb, r), gload(gb, r), r);
+}
+
+template <typename T>
+auto kernel_for(int vec) -> void (*)(const T*, const T*, const float*,
+                                     const float*, const float*,
+                                     const float*, T*, float*, float*, int,
+                                     int, int, int, int, int, int) {
+  if (vec == 8 && sizeof(T) == 2) return gn_bwd<T, (sizeof(T) == 2 ? 8 : 4)>;
+  if (vec == 4) return gn_bwd<T, 4>;
+  if (vec == 2) return gn_bwd<T, 2>;
+  return gn_bwd<T, 1>;
 }
 
 struct Args {
   const void *x, *g, *scale, *bias, *mean, *rstd;
-  void *dx, *dscale_p, *dbias_p, *ws1, *ws2;
-  int B, L, C, G, splits, act;
+  void *dx, *dscale_p, *dbias_p;
+  int B, L, C, G, act;
 };
 
-template <typename T, int VEC>
-int launch(const Args& a, cudaStream_t stream) {
-  const int nv = a.C / VEC;
-  if (nv > 1024) return cudaErrorInvalidValue;
-  const int rpi = nv >= 256 ? 1 : 256 / nv;
-  const int threads = nv * rpi;
-  const int rows_per_split = (a.L + a.splits - 1) / a.splits;
-  const size_t smem1 = 2 * static_cast<size_t>(rpi) * a.C * sizeof(float);
-  const size_t smem2 = (2 * static_cast<size_t>(a.C) + 2 * a.G) *
-                       sizeof(float);
-  if (smem1 > 48 * 1024 || smem2 > 48 * 1024) return cudaErrorInvalidValue;
-  const dim3 grid(a.splits, a.B);
-  const T* x = static_cast<const T*>(a.x);
-  const T* g = static_cast<const T*>(a.g);
-  const float* scale = static_cast<const float*>(a.scale);
-  const float* bias = static_cast<const float*>(a.bias);
-  const float* mean = static_cast<const float*>(a.mean);
-  const float* rstd = static_cast<const float*>(a.rstd);
-  float* ws1 = static_cast<float*>(a.ws1);
-  float* ws2 = static_cast<float*>(a.ws2);
-  gn_bwd_reduce<T, VEC><<<grid, threads, smem1, stream>>>(
-      x, g, scale, bias, mean, rstd, ws1, ws2, a.L, a.C, a.G, a.splits,
-      rows_per_split, a.act);
-  gn_bwd_apply<T, VEC><<<grid, threads, smem2, stream>>>(
-      x, g, scale, bias, mean, rstd, ws1, ws2, static_cast<T*>(a.dx),
-      static_cast<float*>(a.dscale_p), static_cast<float*>(a.dbias_p), a.L,
-      a.C, a.G, a.splits, rows_per_split, a.act);
-  return cudaGetLastError();
-}
-
-// Widest vector (at most 16 bytes) that divides C and keeps every row of
-// x, g and dx aligned.
 template <typename T>
-int dispatch(const Args& a, cudaStream_t stream) {
-  constexpr int kMax = 16 / sizeof(T);
-  auto fits = [&](int vec) {
-    const int bytes = vec * static_cast<int>(sizeof(T));
-    return a.C % vec == 0 && vf::aligned(a.x, bytes) &&
-           vf::aligned(a.g, bytes) && vf::aligned(a.dx, bytes);
-  };
-  if (kMax >= 8 && fits(8)) return launch<T, (kMax >= 8 ? 8 : 1)>(a, stream);
-  if (fits(4)) return launch<T, 4>(a, stream);
-  if (fits(2)) return launch<T, 2>(a, stream);
-  return launch<T, 1>(a, stream);
+int dispatch(const vf::GnPlan& p, const Args& a, cudaStream_t stream) {
+  if (!vf::gn_check_plan(p, a.B, a.L, a.C, a.G, sizeof(T), 2,
+                         {a.x, a.g, a.dx}))
+    return cudaErrorInvalidValue;
+  return vf::gn_launch(
+      kernel_for<T>(p.vec), p, a.B, stream, static_cast<const T*>(a.x),
+      static_cast<const T*>(a.g), static_cast<const float*>(a.scale),
+      static_cast<const float*>(a.bias), static_cast<const float*>(a.mean),
+      static_cast<const float*>(a.rstd), static_cast<T*>(a.dx),
+      static_cast<float*>(a.dscale_p), static_cast<float*>(a.dbias_p), a.L,
+      a.C, a.G, p.rows_per_block, p.rows_staged, p.chunk_rows, a.act);
 }
 
 }  // namespace
 
-extern "C" int vf_group_norm_act_bwd(const void* x, const void* g,
-                                     const void* scale, const void* bias,
-                                     const void* mean, const void* rstd,
-                                     void* dx, void* dscale_p, void* dbias_p,
-                                     void* ws1, void* ws2, int B, int L,
-                                     int C, int G, int splits, int act,
-                                     int dtype, void* stream) {
-  if (B < 1 || L < 1 || C < 1 || G < 1 || C % G != 0 || splits < 1 ||
-      splits > L)
-    return cudaErrorInvalidValue;
-  const Args a{x,    g,       scale,   bias, mean, rstd, dx, dscale_p,
-               dbias_p, ws1, ws2, B, L, C, G, splits, act};
+extern "C" int vf_group_norm_act_bwd(
+    const void* x, const void* g, const void* scale, const void* bias,
+    const void* mean, const void* rstd, void* dx, void* dscale_p,
+    void* dbias_p, int B, int L, int C, int G, int cluster,
+    int rows_per_block, int rows_staged, int chunk_rows, int threads,
+    int smem, int vec, int act, int dtype, void* stream) {
+  const vf::GnPlan p{cluster, rows_per_block, rows_staged, chunk_rows,
+                     threads, smem, vec};
+  const Args a{x, g, scale, bias, mean, rstd, dx, dscale_p, dbias_p,
+               B, L, C, G, act};
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == vf::kBFloat16) return dispatch<__nv_bfloat16>(a, st);
-  if (dtype == vf::kFloat32) return dispatch<float>(a, st);
+  if (dtype == vf::kBFloat16) return dispatch<__nv_bfloat16>(p, a, st);
+  if (dtype == vf::kFloat32) return dispatch<float>(p, a, st);
+  return cudaErrorInvalidValue;
+}
+
+// How many clusters of a plan's shape the card holds at once.
+extern "C" int vf_group_norm_act_bwd_clusters(int cluster, int threads,
+                                              int smem, int vec, int dtype,
+                                              int* active) {
+  const vf::GnPlan p{cluster, 1, 0, 1, threads, smem, vec};
+  if (dtype == vf::kBFloat16)
+    return vf::gn_active_clusters(kernel_for<__nv_bfloat16>(vec), p, active);
+  if (dtype == vf::kFloat32)
+    return vf::gn_active_clusters(kernel_for<float>(vec), p, active);
   return cudaErrorInvalidValue;
 }

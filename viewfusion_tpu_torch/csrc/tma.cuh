@@ -89,6 +89,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// A 1-D bulk copy of `bytes` contiguous bytes (a multiple of 16; src and
+// dst 16-byte aligned) from global into this block's shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(
+          static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+      "l"(src), "r"(bytes),
+      "r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
+      : "memory");
+}
+
 // Tiled TMA loads of the box at coordinates (c0, c1, c2[, c3]) into dst
 // (128-byte aligned; 1024 with the 128-byte swizzle), completing on
 // `bar`.

@@ -15,7 +15,9 @@ plain versions, :func:`group_norm_act_reference` and
 
 from __future__ import annotations
 
-import math
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -23,7 +25,8 @@ from torch.autograd.function import once_differentiable
 from viewfusion_tpu_torch import _native
 
 __all__ = ["group_norm_act", "group_norm_act_reference",
-           "group_norm_act_backward", "group_norm_act_backward_reference"]
+           "group_norm_act_backward", "group_norm_act_backward_reference",
+           "group_norm_plan", "group_norm_active_clusters", "GroupNormPlan"]
 
 _ACTS = {"none": 0, "silu": 1}
 
@@ -101,11 +104,126 @@ def group_norm_act_backward_reference(x, g, scale, bias, mean, rstd, *,
     return dx.to(x.dtype).reshape(x.shape), dscale, dbias
 
 
-def _splits(device: torch.device, b: int, l: int) -> int:
-    """Row splits per sample: enough blocks for ~4 per SM, at least 16
-    rows a block (see csrc/groupnorm.cu)."""
-    want = math.ceil(4 * _native.sm_count(device) / b)
-    return max(1, min(want, l // 16))
+# K1/K2's work plan (csrc/gn_cluster.cuh): one thread-block cluster per
+# sample; each block stages its contiguous range of the sample's rows in
+# shared memory, in up to _MAX_CHUNKS bulk-copy chunks
+_SMEM_BYTES = 232_448      # dynamic shared memory one block may use
+_TWO_BLOCKS = 115_712      # ... with two blocks on an SM (1 KB each kept)
+_BAR_BYTES = 128           # the chunks' mbarriers (csrc/tma.cuh kBarBytes)
+_MAX_CHUNKS = 16
+_THREADS = 256             # threads a block, unless a row needs more
+_MAX_THREADS = 512
+_PORTABLE_CLUSTER = 8      # larger clusters need the non-portable flag
+_MAX_CLUSTER = 16
+
+
+class GroupNormPlan(NamedTuple):
+    """Launch plan of K1 or K2 for one (B, L, C, dtype): ``cluster``
+    blocks per sample, each owning ``rows_per_block`` rows (the last
+    blocks fewer, or none), of which it stages the first ``rows_staged``
+    in shared memory in chunks of ``chunk_rows``; ``threads`` a block,
+    ``vec`` channels a thread, ``smem`` bytes of dynamic shared memory;
+    ``bulk`` where rows are staged by bulk copies (16-byte vectors)."""
+    cluster: int
+    rows_per_block: int
+    rows_staged: int
+    chunk_rows: int
+    threads: int
+    smem: int
+    vec: int
+    bulk: bool
+
+
+def _plan_layout(l, c, itemsize, n_tensors, vec, cluster, smem_cap):
+    """The plan of ``cluster`` blocks per sample, each staging as many of
+    its rows as fit ``smem_cap`` bytes of shared memory."""
+    nv = c // vec
+    rows = -(-l // cluster)
+    threads = nv * max(1, min(max(1, _THREADS // nv), rows))
+    row_bytes = c * itemsize * n_tensors
+    fixed = _BAR_BYTES + 4 * threads * vec + 8 * c * (cluster + 2)
+    staged = min(rows, max(0, (smem_cap - fixed) // row_bytes))
+    rpi = threads // nv
+    sweeps = -(-staged // rpi)
+    chunk_rows = rpi * max(1, -(-sweeps // _MAX_CHUNKS))
+    smem = fixed + -(-staged * row_bytes // 16) * 16
+    return GroupNormPlan(cluster, rows, staged, chunk_rows, threads, smem,
+                         vec, vec * itemsize == 16)
+
+
+@functools.lru_cache(maxsize=None)
+def group_norm_plan(b: int, l: int, c: int, itemsize: int, n_tensors: int,
+                    sms: int, align: int = 16) -> GroupNormPlan:
+    """The work plan of K1 (``n_tensors=1``: x) or K2 (2: x and g) for
+    (B, L, C) rows of ``itemsize``-byte elements on a card with ``sms``
+    SMs, data pointers aligned to ``align`` bytes.
+
+    The cluster starts at the smallest power of two that puts at least
+    ``sms / 2`` blocks on the card (at most 8 for that: at the small
+    sites the cluster's fixed costs outweigh more SMs), and doubles (up to
+    16, the non-portable cluster size) until each block stages all its
+    rows in half an SM's shared memory (two blocks fit an SM); failing
+    that, in all of a block's 227 KB; failing that (large f32 shapes),
+    each block of 16 stages what fits and reads the rest of its rows from
+    device memory.
+    Threads run along C with the widest vector (at most 16 bytes) that
+    divides C and the alignment, 256 a block unless a row needs more.
+    """
+    vec = next(v for v in (8, 4, 2, 1) if v * itemsize <= 16
+               and c % v == 0 and align % (v * itemsize) == 0)
+    if c // vec > _MAX_THREADS:
+        raise ValueError(f"group_norm_act: {c} channels need {c // vec} "
+                         f"threads a row, more than {_MAX_THREADS}")
+    fill = 1
+    while fill < min(_PORTABLE_CLUSTER, l) and 2 * b * fill < sms:
+        fill *= 2
+    clusters = [cl for cl in (1, 2, 4, 8, 16) if cl >= fill
+                and (cl == fill or cl < 2 * l)]
+    for cap in (_TWO_BLOCKS, _SMEM_BYTES):
+        for cluster in clusters:
+            plan = _plan_layout(l, c, itemsize, n_tensors, vec, cluster, cap)
+            if plan.rows_staged == plan.rows_per_block:
+                return plan
+    return _plan_layout(l, c, itemsize, n_tensors, vec, clusters[-1],
+                        _SMEM_BYTES)
+
+
+def _alignment(*tensors) -> int:
+    """The largest power of two up to 16 that divides every data
+    pointer."""
+    align = 16
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
+
+
+def _plan_for(x, n_tensors, *tensors) -> GroupNormPlan:
+    b, c = x.shape[0], x.shape[-1]
+    return group_norm_plan(b, x.numel() // (b * c), c, x.element_size(),
+                           n_tensors, _native.sm_count(x.device),
+                           _alignment(x, *tensors))
+
+
+def group_norm_active_clusters(plan: GroupNormPlan, dtype,
+                               backward: bool = False) -> int:
+    """How many clusters of ``plan``'s shape the current CUDA device holds
+    at once (cudaOccupancyMaxActiveClusters) for K1, or K2 with
+    ``backward``; 0 means the plan cannot be launched."""
+    lib = _native.library()
+    fn = (lib.vf_group_norm_act_bwd_clusters if backward
+          else lib.vf_group_norm_act_fwd_clusters)
+    active = ctypes.c_int(0)
+    err = fn(plan.cluster, plan.threads, plan.smem, plan.vec,
+             _native.dtype_code(dtype, "group_norm_plan"),
+             ctypes.byref(active))
+    _native.check(err, "group_norm_active_clusters")
+    return active.value
+
+
+def _plan_args(plan: GroupNormPlan) -> tuple:
+    return (plan.cluster, plan.rows_per_block, plan.rows_staged,
+            plan.chunk_rows, plan.threads, plan.smem, plan.vec)
 
 
 def _check_f32(what, x, **tensors) -> None:
@@ -127,24 +245,19 @@ def _launch(x, scale, bias, groups, eps, act, return_stats):
     _check_f32("group_norm_act", x, scale=(scale, (c,)), bias=(bias, (c,)))
     l = x.numel() // (b * c)
     lib = _native.library()
-    splits = _splits(x.device, b, l)
     y = torch.empty_like(x)
-    # f32 scratch: the two (B, splits, C) partial-sum workspaces, then
-    # mean and rstd (B, G), one allocation addressed by offset.  Stats
-    # kept for a backward get their own allocation, so that they do not
-    # hold the workspace alive.
-    n_stat, n_ws = b * groups, b * splits * c
-    scratch = torch.empty(2 * n_ws + (0 if return_stats else 2 * n_stat),
-                          device=x.device, dtype=torch.float32)
-    stats = (torch.empty((2, b, groups), device=x.device,
-                         dtype=torch.float32) if return_stats
-             else scratch[2 * n_ws:])
-    p, s = scratch.data_ptr(), stats.data_ptr()
+    plan = _plan_for(x, 1, y)
+    # the (2, B, G) mean/rstd, stored only when asked for
+    stats = mean_p = rstd_p = None
+    if return_stats:
+        stats = torch.empty((2, b, groups), device=x.device,
+                            dtype=torch.float32)
+        mean_p = stats.data_ptr()
+        rstd_p = mean_p + 4 * b * groups
     err = lib.vf_group_norm_act_fwd(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        s, s + 4 * n_stat, p, p + 4 * n_ws,
-        b, l, c, groups, splits, float(eps), _ACTS[act], code,
-        _native.stream_ptr(x.device))
+        mean_p, rstd_p, b, l, c, groups, *_plan_args(plan),
+        float(eps), _ACTS[act], code, _native.stream_ptr(x.device))
     _native.check(err, "group_norm_act")
     group_norm_act.launches += 1
     if not return_stats:
@@ -175,23 +288,17 @@ def _launch_backward(x, g, scale, bias, mean, rstd, groups, act):
                mean=(mean, (b, groups)), rstd=(rstd, (b, groups)))
     l = x.numel() // (b * c)
     lib = _native.library()
-    splits = _splits(x.device, b, l)
     dx = torch.empty_like(x)
-    # f32 scratch: dscale/dbias partials (B, C), then the two
-    # (B, splits, C) workspaces of the row-split reduction
-    n_p, n_ws = b * c, b * splits * c
-    scratch = torch.empty(2 * (n_p + n_ws), device=x.device,
-                          dtype=torch.float32)
-    p = scratch.data_ptr()
+    plan = _plan_for(x, 2, g, dx)
+    partials = torch.empty((2, b, c), device=x.device, dtype=torch.float32)
+    p = partials.data_ptr()
     err = lib.vf_group_norm_act_bwd(
         x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-        p, p + 4 * n_p, p + 8 * n_p, p + 8 * n_p + 4 * n_ws,
-        b, l, c, groups, splits, _ACTS[act], code,
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), p, p + 4 * b * c,
+        b, l, c, groups, *_plan_args(plan), _ACTS[act], code,
         _native.stream_ptr(x.device))
     _native.check(err, what)
     group_norm_act_backward.launches += 1
-    partials = scratch[:2 * n_p].view(2, b, c)
     return dx, partials[0], partials[1]
 
 

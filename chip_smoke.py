@@ -53,7 +53,19 @@ Phases (any failure raises and exits non-zero without the final line):
      T = 2000 step chain (tpu.sampler ddpm) in 4 segments; the counters
      must rise by exactly the per-forward site counts times T;
  15. a tiny f32 ancestral chain with frame capture on the card against
-     the CPU, and a segmented chain on the card against one call.
+     the CPU, and a segmented chain on the card against one call;
+ 16. the experiment loop at the paper's width, the fourth main path,
+     through ``cli.main`` in-process: synthetic shards at 64 px in a
+     temporary directory, configs/small-tpu-1.yaml read with the port's
+     YAML reader and cut to 30 steps (evals at 20 and 30, DDIM 20 steps,
+     EMA 0.999); -t (with vis grids and the best-model files), -r from
+     it = 30, -e, -i -ex -ar -gif, and the run dir served over HTTP from
+     its EMA shadow; the counters must rise by exactly 69 K1 and 8 K3
+     launches per UNet forward and 69 K2 launches per training step over
+     the phase; the stream's reader (native and codec readers compared),
+     the loop's ms per step against phase 10's Trainer, one synchronous
+     save and one load of model.msgpack, each eval pass, and the device's
+     idle share of a profiled loop step.
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 
@@ -80,12 +92,17 @@ call bit for bit.
 
 from __future__ import annotations
 
+import base64
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import urllib.request
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -104,10 +121,21 @@ from viewfusion_tpu_torch.ops.groupnorm import (
     group_norm_act, group_norm_act_backward,
     group_norm_act_backward_reference, group_norm_act_reference,
     group_norm_active_clusters, group_norm_plan)
-from viewfusion_tpu_torch.serving import ViewFusionService
+from viewfusion_tpu_torch import cli
+from viewfusion_tpu_torch.config import dump_yaml, load_config, parse_yaml
+from viewfusion_tpu_torch.data import native_loader
+from viewfusion_tpu_torch.data.nmr import decode_views_u8
+from viewfusion_tpu_torch.data.synthetic import make_synthetic_shards
+from viewfusion_tpu_torch.data.tario import iter_tar_samples
+from viewfusion_tpu_torch.serving import ViewFusionService, make_server
+from viewfusion_tpu_torch.training.checkpoint import Checkpoint
 from viewfusion_tpu_torch.training.trainer import (Trainer,
                                                    global_packed_counts,
                                                    norm_img)
+from viewfusion_tpu_torch.utils.convert import (load_trainer_state,
+                                                trainer_state_to_jax,
+                                                unet_state_dict_from_jax)
+from viewfusion_tpu_torch.utils.png import decode_png, encode_png
 
 # configs/small-tpu-4.yaml, the fields the serving path reads (kept in
 # code: the card's machine may have no PyYAML)
@@ -755,7 +783,7 @@ def run_trainer(device, k1_sites: int, k3_sites: int) -> dict:
     say(f"device busy {busy:.2f} ms against the unprofiled median step "
         f"{median:.1f} ms: {busy / median:.0%} (the profiler slows the "
         f"host, not the kernels)")
-    return launches
+    return launches, median
 
 
 def check_train_against_cpu(device) -> None:
@@ -1096,6 +1124,262 @@ def check_ancestral_against_cpu(device) -> None:
         "call bit for bit")
 
 
+EXP_OBJECTS = 64          # per split: 4 shards of 16, ~19 MB at 64 px
+EXP_MAX_IT, EXP_RESUME_IT = 30, 35
+EXP_FIELDS = ["params", "opt_state", "step", "ema_params"]
+
+
+def experiment_config(data_dir: str) -> str:
+    """configs/small-tpu-1.yaml through the port's YAML reader, cut to a
+    30-step run on the phase's shards; writes it beside the shards and
+    returns its path.  The model's widths stay as published."""
+    raw = parse_yaml(Path("configs/small-tpu-1.yaml").read_text())
+    changes = {"model.max_it": EXP_MAX_IT, "model.checkpoint_every": 10,
+               "model.log_every": 5, "model.validate_from": 20,
+               "model.validate_every": 10, "data.params.test.params.size": 56,
+               "tpu.sampler": "ddim", "tpu.ddim_steps": 20,
+               "tpu.ema_decay": 0.999, "tpu.profile_from": 12,
+               "tpu.profile_steps": 2}
+    for split in ("train", "test", "validation"):
+        changes[f"data.params.{split}.params.path"] = data_dir
+    for key, value in changes.items():
+        node = raw
+        *path, last = key.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = value
+    say("phase 16 config: configs/small-tpu-1.yaml with "
+        + ", ".join(f"{k}={v}" for k, v in changes.items()
+                    if not k.endswith(".path"))
+        + f", data paths -> the phase's shards")
+    path = os.path.join(data_dir, "small-tpu-1-phase16.yaml")
+    with open(path, "w") as f:
+        f.write(dump_yaml(raw))
+    return path
+
+
+def compare_readers(data_dir: str) -> str:
+    """The native reader against the codec on one train shard."""
+    if not native_loader.native_available():
+        return (f"the native loader did not build, so the codec read the "
+                f"shards: {native_loader.build_error()}")
+    shard = os.path.join(data_dir, "NMR-train-00.tar")
+    reader = native_loader.NativeShardReader([shard], resample=False)
+    native = {key: views for views, key in reader}
+    reader.close()
+    codec = {s["__key__"]: decode_views_u8(s)
+             for s in iter_tar_samples(shard)}
+    if native.keys() != codec.keys() or not all(
+            np.array_equal(native[k], codec[k]) for k in codec):
+        raise AssertionError("the native reader and the codec disagree")
+    return (f"native and codec readers equal on {len(codec)} objects of "
+            f"{os.path.basename(shard)}")
+
+
+def serve_run_dir(run: str, device) -> int:
+    """ViewFusionService on the run dir answers two base64-PNG requests
+    over HTTP, from the EMA shadow; returns its UNet forwards."""
+    service = ViewFusionService(run, batch_size=2, default_steps=20,
+                                device=device)
+    state, _ = Checkpoint(run).load("best_model_all.msgpack",
+                                    dict.fromkeys(EXP_FIELDS))
+    # a GroupNorm scale: f32 in the service, moved by Adam, not by EMA yet
+    key = "final_conv.block.0.weight"
+    served = service.model.unet.state_dict()[key].cpu()
+    for field, same in (("ema_params", True), ("params", False)):
+        w = unet_state_dict_from_jax(state[field])[key]
+        if torch.equal(served, w) != same:
+            raise AssertionError(f"the service does not serve the EMA "
+                                 f"shadow ({field})")
+    httpd = make_server(service, host="127.0.0.1", port=0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    rng = np.random.default_rng(SEED + 16)
+    hw = service.image_size
+    try:
+        for i in range(2):
+            views = [base64.b64encode(encode_png(rng.integers(
+                0, 256, (hw, hw, 3), dtype=np.uint8))).decode()
+                for _ in range(1 + 2 * i)]
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}/generate",
+                data=json.dumps({"views": views, "angle": 0.7 * i,
+                                 "steps": 20}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                img = decode_png(base64.b64decode(
+                    json.loads(resp.read())["image"]))
+            if img.shape != (hw, hw, 3):
+                raise AssertionError(f"bad served image {img.shape}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(30)
+    return service.model.unet_forwards
+
+
+def run_experiment(k1_sites: int, k3_sites: int, trainer_ms: float) -> dict:
+    """The experiment loop, a main path: cli.main -t, -r, -e and -i on
+    a run dir in a temporary directory, then the run dir served.  Returns
+    the launches of the phase."""
+    cwd = os.getcwd()
+    tmp = tempfile.TemporaryDirectory(prefix="vf-phase16-")
+    try:
+        data = os.path.join(tmp.name, "data")
+        t0 = time.perf_counter()
+        for mode, seed in (("train", 1), ("test", 2)):
+            make_synthetic_shards(data, mode, num_objects=EXP_OBJECTS,
+                                  num_shards=4, image_size=64, seed=seed,
+                                  family="shaded")
+        mb = sum(f.stat().st_size for f in Path(data).iterdir()) / 2 ** 20
+        say(f"phase 16 shards: {2 * EXP_OBJECTS} objects x 24 views at 64 "
+            f"px, {mb:.1f} MB, written in {time.perf_counter() - t0:.1f} s")
+        cfg_path = experiment_config(data)
+        group_norm_act.launches = group_norm_act_backward.launches = 0
+        spatial_self_attention.launches = 0
+        forwards, steps, exps = 0, 0, []
+
+        def drive(argv):
+            nonlocal forwards, steps
+            exp = cli.main(argv)
+            tr = exp.trainer
+            forwards += tr.model.unet_forwards + (
+                tr.ema_model.unet_forwards if tr.ema_model else 0)
+            exps.append(exp)
+            return exp
+
+        os.chdir(tmp.name)
+        t0 = time.perf_counter()
+        exp = drive(["-c", cfg_path, "-t"])
+        train_s = time.perf_counter() - t0
+        run = os.path.abspath(exp.out_dir)
+        steps += exp.trainer.step
+        records = [json.loads(line) for line in open(
+            os.path.join(run, "metrics.jsonl"))]
+        losses = {r["it"]: r["loss"] for r in records if "loss" in r}
+        evals = {r["it"]: (r["ssim"], r["psnr"]) for r in records
+                 if "ssim" in r}
+        missing = [n for n in ("config.yaml", "model.msgpack",
+                               "best_model_ssim.msgpack",
+                               "best_model_psnr.msgpack",
+                               "best_model_all.msgpack", "output-20.png",
+                               "output-30.png")
+                   if not os.path.exists(os.path.join(run, n))]
+        if (missing or sorted(losses) != list(range(0, EXP_MAX_IT + 1, 5))
+                or not all(np.isfinite(v) for v in losses.values())
+                or sorted(evals) != [20, 30] or exp.it != EXP_MAX_IT):
+            raise AssertionError(f"-t run dir: missing {missing}, losses "
+                                 f"{losses}, evals {evals}, it {exp.it}")
+        say(f"-t: {exp.trainer.step} steps in {train_s:.1f} s (two evals, "
+            f"two vis grids), reader {exp.train_stream.reader}; losses "
+            + " ".join(f"{k}:{v:.5f}" for k, v in sorted(losses.items()))
+            + "; eval " + ", ".join(f"it {k}: ssim {a:.4f} psnr {b:.2f}"
+                                    for k, (a, b) in sorted(evals.items())))
+        say(compare_readers(data))
+        gaps = np.diff(exp.step_ends)[1:10] * 1e3  # steps 2..10
+        loop_ms = float(np.median(gaps))
+        busy = 0.0
+        if exp.last_profile is not None:
+            prof, wall, n = exp.last_profile
+            busy = report_profile(prof, f"{n} loop steps at {TRAIN_ROWS} "
+                                  "rows", wall * 1e3) / n
+            say(f"loop step: device busy {busy:.2f} ms of "
+                f"{wall * 1e3 / n:.1f} ms wall per profiled step, idle "
+                f"{1 - busy * n / (wall * 1e3):.0%}")
+
+        # one synchronous save and one load of model.msgpack
+        tr = exp.trainer
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.checkpoint.save("model.msgpack", trainer_state_to_jax(tr),
+                            **exp._checkpoint_extra)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(run, "model.msgpack")) / 1e6
+        t0 = time.perf_counter()
+        state, _ = exp.checkpoint.load("model.msgpack",
+                                       dict.fromkeys(EXP_FIELDS))
+        read_s = time.perf_counter() - t0
+        before = [p.detach().clone() for p in tr.params]
+        load_trainer_state(tr, state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in zip(before, tr.params)):
+            raise AssertionError("model.msgpack did not load back exactly")
+        say(f"timing on {card_line()}: loop median {loop_ms:.1f} ms per "
+            f"step (steps 2-10) against the Trainer's {trainer_ms:.1f} ms "
+            f"(phase 10); model.msgpack {size:.0f} MB: save {save_s:.2f} s "
+            f"(sync), load {load_s:.2f} s ({read_s:.2f} s read and "
+            f"decode); eval passes "
+            + ", ".join(f"{v:.2f} s" for v in exp.eval_seconds)
+            + f"; idle share {(1 - busy / loop_ms) if busy else 0:.0%} of "
+            "the loop's median step")
+        del exp, state, before, tr
+        exps.clear()
+        torch.cuda.empty_cache()
+
+        # -r from it = 30 with max_it raised in the snapshot
+        snap = os.path.join(run, "config.yaml")
+        raw = parse_yaml(Path(snap).read_text())
+        raw["model"]["max_it"] = EXP_RESUME_IT
+        Path(snap).write_text(dump_yaml(raw))
+        exp = drive(["-s", run, "-r", "-t"])
+        new = [json.loads(line)["it"] for line in open(
+            os.path.join(run, "metrics.jsonl"))][len(records):]
+        if (exp.it, exp.trainer.step, new) != (
+                EXP_RESUME_IT, EXP_RESUME_IT + 1, [EXP_RESUME_IT]):
+            raise AssertionError(f"resume: it {exp.it}, step "
+                                 f"{exp.trainer.step}, new records {new}")
+        steps += EXP_RESUME_IT - EXP_MAX_IT
+        say(f"-r: continued from it {EXP_MAX_IT} to {exp.it} (updates "
+            f"{exp.trainer.step})")
+        exps.clear()
+        del exp
+        torch.cuda.empty_cache()
+
+        exp = drive(["-s", run, "-e"])
+        last = json.loads(open(os.path.join(run, "metrics.jsonl"))
+                          .readlines()[-1])
+        if not {"ssim", "psnr"} <= set(last):
+            raise AssertionError(f"-e logged {last}")
+        say(f"-e: ssim {last['ssim']:.4f} psnr {last['psnr']:.2f} in "
+            f"{exp.eval_seconds[0]:.2f} s")
+        exps.clear()
+        del exp
+
+        t0 = time.perf_counter()
+        exp = drive(["-s", run, "-i", "-ex", "-ar", "-gif"])
+        it = max(exp.it, 0)
+        made = [f"extrapolate-{it}.png", f"autoregressive_single-{it}.png",
+                f"autoregressive_animated-{it}.gif",
+                f"weights_animated-{it}.gif"]
+        if not all(os.path.exists(os.path.join(run, n)) for n in made):
+            raise AssertionError(f"-i left {sorted(os.listdir(run))}")
+        say(f"-i -ex -ar -gif: {', '.join(made)} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        exps.clear()
+        del exp
+        torch.cuda.empty_cache()
+
+        forwards += serve_run_dir(run, torch.device("cuda"))
+        torch.cuda.synchronize()
+        launches = {"k1": group_norm_act.launches,
+                    "k2": group_norm_act_backward.launches,
+                    "k3": spatial_self_attention.launches}
+        want = {"k1": k1_sites * forwards, "k2": k1_sites * steps,
+                "k3": k3_sites * forwards}
+        if launches != want:
+            raise AssertionError(f"experiment launch counters {launches} "
+                                 f"!= {want} ({forwards} UNet forwards, "
+                                 f"{steps} training steps)")
+        say(f"launches on the experiment path: K1 {launches['k1']}, K2 "
+            f"{launches['k2']}, K3 {launches['k3']} over {forwards} UNet "
+            f"forwards and {steps} training steps")
+        return launches
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
@@ -1194,7 +1478,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 10. training: the second main path
-    train_launches = run_trainer(device, k1_calls, k3_calls)
+    train_launches, trainer_ms = run_trainer(device, k1_calls, k3_calls)
     torch.cuda.empty_cache()
 
     # 11. tiny f32 train steps on the card against the CPU
@@ -1218,6 +1502,10 @@ def main() -> int:
 
     # 15. tiny f32 ancestral chain on the card against the CPU
     check_ancestral_against_cpu(device)
+    torch.cuda.empty_cache()
+
+    # 16. the experiment loop through the CLI: the fourth main path
+    exp_launches = run_experiment(k1_calls, k3_calls, trainer_ms)
 
     kernels = []
     for name, route_src, replaces, tot, key, per in (
@@ -1236,6 +1524,7 @@ def main() -> int:
                    "training": train_launches[key]}
         if key in anc_launches:
             by_path["ancestral"] = anc_launches[key]
+        by_path["experiment"] = exp_launches[key]
         kernels.append({
             "name": name, "route": "cuda", "source": route_src,
             "replaces": replaces, "launches": sum(by_path.values()),

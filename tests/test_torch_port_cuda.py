@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-Every test here is marked ``cuda`` and skips without a CUDA device (the
-kernels have no CPU mode).  The file imports neither JAX nor the JAX
-package, so it also runs where only PyTorch is installed:
+Every test here is marked ``cuda``; those that need a card skip without
+one (the kernels have no CPU mode).  The file imports neither JAX nor
+the JAX package, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
@@ -14,8 +14,13 @@ rows, where K2's plan takes a 16-block cluster (bf16) or stages part of
 each block's rows (f32).  The backward tests cover kernel K2 and the
 autograd Functions on the card, and a tiny UNet's gradients on the card
 against the CPU; the conv weight-gradient tests cover kernel K4 (ragged
-channels, 5 x 7 images, bf16 and f32) and the ``conv3x3`` op.
+channels, 5 x 7 images, bf16 and f32) and the ``conv3x3`` op.  The
+experiment loop runs ``cli.main -t`` on the card at TINY size and reads
+its run dir back on the CPU; the native shard reader is held against
+the PNG codec (no card needed).
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -414,3 +419,95 @@ def test_conv_wgrad_kernel_rejects_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="contiguous"):
         t = x.permute(0, 2, 1, 3)
         conv3x3_wgrad(t, t)
+
+
+# the CLI at TINY_CONFIG's sizes (tests/conftest.py), kept here because
+# this file imports no JAX
+TINY_RAW = {
+    "model": {
+        "denoise_net": "unet", "max_it": 4, "validate_every": 4,
+        "validate_from": 4, "checkpoint_every": 2, "log_every": 2,
+        "view_fusion_params": {"beta_schedule": {
+            phase: {"schedule": "linear", "num_timesteps": 8,
+                    "linear_start": 1e-4, "linear_end": 0.09}
+            for phase in ("train", "test")}},
+        "denoise_net_params": {
+            "image_size": 8, "in_channel": 6, "out_channel": 6,
+            "inner_channel": 8, "norm_groups": 4, "res_blocks": 1,
+            "attn_res": [4], "channel_mults": [1, 2]},
+    },
+    "data": {"params": {
+        "num_workers": 1, "max_views": 3, "batch_size": 4,
+        "train": {"params": {"start_shard": 0, "end_shard": 0,
+                             "path": "data", "mode": "train"}},
+        "test": {"params": {"start_shard": 0, "end_shard": 0,
+                            "path": "data", "mode": "test", "size": 4}}}},
+    "tpu": {"compute_dtype": "float32", "seed": 0, "sample_num": 4,
+            "packed_views": True, "ema_decay": 0.9, "lr_warmup": 1},
+}
+
+
+def test_cli_on_the_card_and_its_run_dir_on_the_cpu(device, tmp_path,
+                                                    monkeypatch):
+    """``cli.main -t`` on the card (the default device) at TINY size; the
+    run dir reads back on the CPU: the saved state equals the card's
+    exactly, and ``-e --device cpu`` evaluates it."""
+    from viewfusion_tpu_torch import cli
+    from viewfusion_tpu_torch.config import dump_yaml
+    from viewfusion_tpu_torch.data.synthetic import make_synthetic_shards
+    from viewfusion_tpu_torch.training.checkpoint import Checkpoint
+    from viewfusion_tpu_torch.training.trainer import Trainer
+    from viewfusion_tpu_torch.utils.convert import load_trainer_state
+
+    monkeypatch.chdir(tmp_path)
+    for mode in ("train", "test"):
+        make_synthetic_shards("data", mode, num_objects=8, image_size=8)
+    with open("tiny.yaml", "w") as f:
+        f.write(dump_yaml(TINY_RAW))
+    exp = cli.main(["-c", "tiny.yaml", "-t"])
+    assert exp.device.type == "cuda" and exp.it == 4
+    run = exp.out_dir
+    for name in ("model.msgpack", "best_model_all.msgpack", "output-4.png"):
+        assert (tmp_path / run / name).exists(), name
+    cpu = Trainer(exp.config, device="cpu")
+    state, extra = Checkpoint(run).load(
+        "model.msgpack", dict.fromkeys(["params", "opt_state", "step",
+                                        "ema_params"]))
+    load_trainer_state(cpu, state)
+    assert extra["it"] == 4 and cpu.step == exp.trainer.step == 5
+    for a, b in zip(cpu.params, exp.trainer.params):
+        assert torch.equal(a, b.cpu())
+    for a, b in zip(cpu.ema, exp.trainer.ema):
+        assert torch.equal(a, b.cpu())
+    for p, q in zip(cpu.params, exp.trainer.params):
+        mine, theirs = cpu.optimizer.state[p], exp.trainer.optimizer.state[q]
+        assert torch.equal(mine["exp_avg"], theirs["exp_avg"].cpu())
+        assert torch.equal(mine["exp_avg_sq"], theirs["exp_avg_sq"].cpu())
+    cli.main(["-s", run, "-e", "--device", "cpu"])
+    with open(tmp_path / run / "metrics.jsonl") as f:
+        last = json.loads(f.readlines()[-1])
+    assert -1.0 <= last["ssim"] <= 1.0 and np.isfinite(last["psnr"])
+
+
+def test_native_reader_agrees_with_the_codec(tmp_path):
+    """The native loader (``native/vfloader.cpp``, built with g++ at first
+    use) and the port's PNG codec decode the same shard to equal views."""
+    from viewfusion_tpu_torch.data import native_loader
+    from viewfusion_tpu_torch.data.nmr import decode_views_u8
+    from viewfusion_tpu_torch.data.synthetic import make_synthetic_shards
+    from viewfusion_tpu_torch.data.tario import iter_tar_samples
+
+    if not native_loader.native_available():
+        pytest.skip(f"the native loader did not build: "
+                    f"{native_loader.build_error()}")
+    shard, = make_synthetic_shards(str(tmp_path), "train", num_objects=6,
+                                   image_size=16, family="shaded")
+    reader = native_loader.NativeShardReader([shard], n_threads=3,
+                                             resample=False)
+    native = {key: views for views, key in reader}
+    reader.close()
+    codec = {s["__key__"]: decode_views_u8(s)
+             for s in iter_tar_samples(shard)}
+    assert native.keys() == codec.keys() and len(codec) == 6
+    for key, views in codec.items():
+        assert np.array_equal(native[key], views), key

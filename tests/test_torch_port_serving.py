@@ -193,6 +193,23 @@ def test_service_without_ema_field_serves_raw_params(tmp_path, capsys):
         torch.testing.assert_close(served[k], v.to(served[k].dtype))
 
 
+def test_service_reads_model_msgpack_without_a_best_file(tmp_path):
+    """The JAX service's precedence: best_model_all.msgpack, else the
+    rolling model.msgpack."""
+    best, rolling = _weights(4), _weights(5)
+    write_run_dir(str(tmp_path), Config.from_dict(TINY_CONFIG), rolling)
+    (tmp_path / "best_model_all.msgpack").rename(tmp_path / "model.msgpack")
+    served = ViewFusionService(str(tmp_path), batch_size=2,
+                               device="cpu").model.unet.state_dict()
+    torch.testing.assert_close(served["downs.0.weight"],
+                               rolling["downs.0.weight"])
+    write_run_dir(str(tmp_path), Config.from_dict(TINY_CONFIG), best)
+    served = ViewFusionService(str(tmp_path), batch_size=2,
+                               device="cpu").model.unet.state_dict()
+    torch.testing.assert_close(served["downs.0.weight"],
+                               best["downs.0.weight"])
+
+
 def test_default_device_is_cuda(run_dir):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -250,23 +267,29 @@ def test_port_sources_import_nothing_of_jax():
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
-            assert root not in ("jax", "flax", "optax", "viewfusion_tpu"), \
-                (path, name)
+            assert root not in ("jax", "flax", "optax", "viewfusion_tpu",
+                                "yaml", "PIL", "msgpack"), (path, name)
 
 
-def test_port_runs_with_jax_and_the_jax_package_blocked():
-    """A fresh interpreter where importing jax, flax, optax or
-    viewfusion_tpu fails imports every port module and runs a tiny CPU
-    generate_ddim."""
+def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    """A fresh interpreter where importing jax, flax, optax,
+    viewfusion_tpu, yaml, PIL or msgpack fails imports every port module,
+    runs a tiny CPU generate_ddim, and writes and serves a run dir."""
     script = """
-import sys
-for name in ("jax", "flax", "optax", "viewfusion_tpu"):
+import pathlib, sys
+for name in ("jax", "flax", "optax", "viewfusion_tpu", "yaml", "PIL",
+             "msgpack"):
     sys.modules[name] = None
+import importlib
 import torch
-import viewfusion_tpu_torch.serving, viewfusion_tpu_torch.utils.convert
-import viewfusion_tpu_torch._native
+import viewfusion_tpu_torch
+root = pathlib.Path(viewfusion_tpu_torch.__file__).parent
+for path in sorted(root.rglob("*.py")):
+    importlib.import_module(".".join(
+        path.relative_to(root.parent).with_suffix("").parts))
 from viewfusion_tpu_torch.config import Config
 from viewfusion_tpu_torch.models.view_fusion import ViewFusion
+from viewfusion_tpu_torch.serving import ViewFusionService, write_run_dir
 cfg = Config.from_dict(%r)
 model = ViewFusion.from_config(cfg)
 g = torch.Generator().manual_seed(0)
@@ -274,8 +297,12 @@ out = model.generate_ddim(torch.rand(2, 3, 8, 8, 3, generator=g),
                           torch.tensor([1, 3]), torch.zeros(2),
                           num_steps=3, generator=g)
 assert out.shape == (2, 8, 8, 3) and bool(torch.isfinite(out).all())
+write_run_dir(%r, cfg, model.unet.state_dict())
+svc = ViewFusionService(%r, batch_size=2, device="cpu")
+img = svc.submit(torch.rand(1, 8, 8, 3).numpy(), 0.5, steps=2)
+assert img.shape == (8, 8, 3)
 print("ok")
-""" % (TINY_CONFIG,)
+""" % (TINY_CONFIG, str(tmp_path), str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -16,9 +16,11 @@ Usage:
                      "steps": 50, "sampler": "ddim"}
     GET  /healthz
 
-A run dir holds ``config.yaml`` and ``model.pt`` =
-``{"params": state_dict[, "ema_params": state_dict]}`` of the port's UNet.
-The service runs on CUDA unless ``device="cpu"`` is asked for.
+A run dir is the JAX package's: ``config.yaml`` and the checkpoint
+``best_model_all.msgpack``, else ``model.msgpack`` (read by
+``training/checkpoint.py``), so the service serves run dirs of either
+package.  PNGs of requests and replies go through the port's codec.  The
+service runs on CUDA unless ``device="cpu"`` is asked for.
 """
 
 from __future__ import annotations
@@ -28,8 +30,11 @@ import base64
 import binascii
 import io
 import json
+import os
+import struct
 import threading
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -41,6 +46,10 @@ import torch
 from viewfusion_tpu_torch.config import Config, load_config
 from viewfusion_tpu_torch.models.unet import cast_matmul_weights_
 from viewfusion_tpu_torch.models.view_fusion import ViewFusion
+from viewfusion_tpu_torch.training.checkpoint import Checkpoint
+from viewfusion_tpu_torch.utils.convert import (unet_params_to_jax,
+                                                unet_state_dict_from_jax)
+from viewfusion_tpu_torch.utils.png import decode_png, encode_png
 
 __all__ = ["ViewFusionService", "ClientError", "make_server", "serve",
            "main", "write_run_dir"]
@@ -74,16 +83,17 @@ def write_run_dir(run_dir: str, config: Config,
                   params: Dict[str, torch.Tensor],
                   ema_params: Optional[Dict[str, torch.Tensor]] = None
                   ) -> None:
-    """Write a run dir that :class:`ViewFusionService` serves."""
-    import os
-
+    """Write a run dir of the JAX layout that :class:`ViewFusionService`
+    (and the JAX package's ``-e``/``-i`` and service) reads:
+    ``config.yaml`` and a ``best_model_all.msgpack`` holding ``params``
+    (and ``ema_params``) of the port's UNet ``state_dict``s."""
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "config.yaml"), "w") as f:
         f.write(config.to_yaml())
-    payload = {"params": params}
+    state = {"params": unet_params_to_jax(params)}
     if ema_params is not None:
-        payload["ema_params"] = ema_params
-    torch.save(payload, os.path.join(run_dir, "model.pt"))
+        state["ema_params"] = unet_params_to_jax(ema_params)
+    Checkpoint(run_dir).save("best_model_all.msgpack", state)
 
 
 def _resolve_device(device) -> torch.device:
@@ -95,9 +105,10 @@ def _resolve_device(device) -> torch.device:
 
 
 class ViewFusionService:
-    """Serves batched generation from a run dir (``config.yaml`` +
-    ``model.pt``); :meth:`from_state_dict` builds one from a ``Config``
-    and weights in memory.
+    """Serves batched generation from a run dir (``config.yaml`` and
+    ``best_model_all.msgpack``, else ``model.msgpack``);
+    :meth:`from_state_dict` builds one from a ``Config`` and weights in
+    memory.
 
     ``max_views`` bounds the conditioning buffer (default: the config's
     max_views).  Weights move to ``device`` once, conv/linear weights in
@@ -107,18 +118,23 @@ class ViewFusionService:
                  max_wait_ms: float = 30.0, default_steps: int = 50,
                  request_timeout: float = 900.0,
                  max_views: Optional[int] = None, device="cuda"):
-        config = load_config(f"{run_dir}/config.yaml")
-        payload = torch.load(f"{run_dir}/model.pt", map_location="cpu",
-                             weights_only=True)
+        config = load_config(os.path.join(run_dir, "config.yaml"))
+        ckpt = Checkpoint(run_dir)
+        name = ("best_model_all.msgpack"
+                if ckpt.exists("best_model_all.msgpack") else "model.msgpack")
         # EMA-trained runs serve the EMA shadow (the weights eval scored);
         # a checkpoint without one serves its raw params, never random ones
         use_ema = config.train.ema_decay > 0
-        if use_ema and "ema_params" not in payload:
-            print("WARNING: model.pt has no ema_params field despite "
+        template = dict.fromkeys(
+            ("params", "ema_params") if use_ema else ("params",))
+        restored, _ = ckpt.load(name, template)
+        if use_ema and "ema_params" in ckpt.last_missing:
+            print(f"WARNING: {name} has no ema_params field despite "
                   "tpu.ema_decay > 0; serving the checkpoint's raw params "
                   "instead.", flush=True)
             use_ema = False
-        weights = payload["ema_params"] if use_ema else payload["params"]
+        weights = unet_state_dict_from_jax(
+            restored["ema_params" if use_ema else "params"])
         self._setup(config, weights, batch_size, max_wait_ms, default_steps,
                     request_timeout, max_views, device)
 
@@ -318,8 +334,6 @@ class ViewFusionService:
 
 
 def _decode_views(payload: dict) -> np.ndarray:
-    from PIL import Image
-
     views = payload.get("views")
     if not isinstance(views, list) or not views:
         raise ClientError('"views" must be a non-empty list')
@@ -327,11 +341,11 @@ def _decode_views(payload: dict) -> np.ndarray:
     for item in views:
         if isinstance(item, str):  # base64 PNG
             try:
-                img = Image.open(io.BytesIO(base64.b64decode(item)))
-                decoded.append(
-                    np.asarray(img.convert("RGB"), np.float32) / 255.0)
-            except (binascii.Error, OSError) as e:
+                img = decode_png(base64.b64decode(item))
+            except (binascii.Error, ValueError, zlib.error,
+                    struct.error) as e:
                 raise ClientError(f"undecodable view image: {e}")
+            decoded.append(img.astype(np.float32) / 255.0)
         else:  # nested lists
             try:
                 arr = np.asarray(item, np.float32)
@@ -391,13 +405,8 @@ def make_server(service: ViewFusionService, host: str = "0.0.0.0",
                 img = service.submit(
                     cond, payload["angle"], payload.get("steps"),
                     sampler=payload.get("sampler", "ddim"))
-                from PIL import Image
-
-                buf = io.BytesIO()
-                Image.fromarray((img * 255).astype(np.uint8)).save(
-                    buf, format="PNG")
-                self._send(200, {
-                    "image": base64.b64encode(buf.getvalue()).decode()})
+                png = encode_png((img * 255).astype(np.uint8))
+                self._send(200, {"image": base64.b64encode(png).decode()})
             except (ClientError, KeyError, TypeError,
                     json.JSONDecodeError) as e:
                 self._send(400, {"error": str(e)})

@@ -1,4 +1,4 @@
-"""The training step of the port (counterpart of the train step of
+"""The training step and the experiment loop of the port (counterpart of
 ``viewfusion_tpu/training/trainer.py``).
 
 ``Trainer.train_step(batch)`` takes one host batch in the layout the JAX
@@ -30,23 +30,45 @@ shadow when there is one (``_infer_model``) and picks the sampler from
 ``dpm_sde``), on packed UNet rows when the batch carries them.  The JAX
 trainer's ``(seed + 23, salt)`` key becomes a ``torch.Generator`` seeded
 from both (:func:`salted_generator`).
+
+:class:`Experiment` is the JAX ``Experiment`` on this ``Trainer``: the
+run dir, the checkpoint files of the JAX layout, the data streams, the
+train loop with its checkpoint, log and validation gates, eval with the
+best-model files, and the inference modes.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Optional
+import datetime
+import os
+import queue
+import signal
+import sys
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
-from viewfusion_tpu_torch.config import Config
+from viewfusion_tpu_torch.config import Config, load_config
+from viewfusion_tpu_torch.data.nmr import Batcher, create_nmr_stream, prefetch
 from viewfusion_tpu_torch.models.view_fusion import (GenerateOutput,
                                                      ViewFusion)
+from viewfusion_tpu_torch.ops.metrics import compute_psnr, compute_ssim
+from viewfusion_tpu_torch.training.checkpoint import Checkpoint
+from viewfusion_tpu_torch.training.logging import MetricLogger
 from viewfusion_tpu_torch.training.schedulers import lr_schedule
+from viewfusion_tpu_torch.utils.convert import (load_trainer_state,
+                                                trainer_state_to_jax)
+from viewfusion_tpu_torch.utils.image import make_grid, save_png, to_uint8
 
-__all__ = ["Trainer", "norm_img", "stratified_count_multiset",
-           "packed_indices", "global_packed_counts", "salted_generator"]
+__all__ = ["Trainer", "Experiment", "ExperimentArgs", "norm_img",
+           "stratified_count_multiset", "packed_indices",
+           "global_packed_counts", "salted_generator"]
 
 
 def norm_img(x: torch.Tensor) -> torch.Tensor:
@@ -303,3 +325,661 @@ class Trainer:
                 view_count, angle, sample_num=sample_num,
                 packed_idx=packed_idx)
         return model.finalize_chain(carry)
+
+
+# ----------------------------------------------------------------------
+# The experiment loop (counterpart of the JAX ``Experiment``)
+# ----------------------------------------------------------------------
+_STATE_FIELDS = ("params", "opt_state", "step", "ema_params")
+
+
+@dataclass
+class ExperimentArgs:
+    """The CLI's flags (``cli.py``); ``device`` is ``"cuda"`` unless the
+    caller asks for the CPU."""
+
+    config: Optional[str] = None
+    src: Optional[str] = None
+    train: bool = False
+    eval: bool = False
+    resume: bool = False
+    inference: bool = False
+    wandb: bool = False
+    autoregressive: bool = False
+    generate_gifs: bool = False
+    extrapolate: bool = False
+    gpu: bool = False  # accepted for the reference CLI; see ``device``
+    device: str = "cuda"
+
+
+def _refuse_unported(cfg: Config) -> None:
+    """Knobs of the JAX Experiment that the port does not take yet."""
+    tc = cfg.train
+    refused = []
+    if tc.fused_feed:
+        refused.append("tpu.fused_feed")
+    if tc.shard_opt_state:
+        refused.append("tpu.shard_opt_state")
+    if tc.mesh_data > 1 or tc.mesh_view > 1:
+        refused.append(f"tpu.mesh_data={tc.mesh_data} / "
+                       f"tpu.mesh_view={tc.mesh_view}")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        refused.append("more than one process (WORLD_SIZE="
+                       f"{os.environ['WORLD_SIZE']})")
+    if refused:
+        raise NotImplementedError(
+            f"{', '.join(refused)}: not ported yet (ROADMAP.md, queue 1); "
+            "the port's experiment loop runs one process on one device")
+
+
+class Experiment:
+    """Train / eval / inference over a run dir, as the JAX ``Experiment``
+    does, on the port's :class:`Trainer`.
+
+    The run dir (``./logs/<time>-<config name>`` for ``-t``, else ``-s``)
+    holds ``config.yaml``, the rolling ``model.msgpack``, the
+    ``best_model_{ssim,psnr,all}.msgpack`` files, ``metrics.jsonl`` and
+    the images and GIFs: the JAX package's layout and file formats, so
+    either package continues the other's run.  ``-t``/``-r`` load
+    ``model.msgpack``, ``-e``/``-i`` load ``best_model_all.msgpack``.
+
+    Single process, one device: the JAX mesh, ZeRO-1 and the fused feed
+    are refused (:func:`_refuse_unported`)."""
+
+    def __init__(self, args, log_root: str = "./logs"):
+        self.args = args
+        self.log_dict: Dict[str, Any] = {}
+        if args.inference or args.resume or args.eval:
+            if args.src is None:
+                raise ValueError(
+                    "Source directory (-s, --src) must be provided.")
+            self.out_dir = str(Path(args.src))
+            exp_name = os.path.basename(os.path.normpath(args.src))
+            self.config = load_config(os.path.join(args.src, "config.yaml"))
+        else:
+            config_name = os.path.splitext(os.path.basename(args.config))[0]
+            now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
+            exp_name = "-".join((now, config_name))
+            self.out_dir = os.path.join(log_root, exp_name)
+            self.config = load_config(args.config)
+        self.exp_name = exp_name
+        cfg = self.config
+        _refuse_unported(cfg)
+        self.rng = np.random.default_rng(cfg.train.seed)
+        self.trainer = Trainer(cfg, device=args.device)
+        self.device = self.trainer.device
+        self.max_views = cfg.data.max_views
+        self.relative = cfg.relative
+        self.cond_key = self.trainer.cond_key
+        self.angle_key = self.trainer.angle_key
+        # seconds of each eval pass and host times of the train steps
+        self.eval_seconds: List[float] = []
+        self.step_ends: List[float] = []
+        self.last_profile = None  # (profiler, wall seconds, steps)
+        self._prof = None
+        self._init_model()
+        self._init_dataloaders()
+        self.logger = MetricLogger(self.out_dir, use_wandb=args.wandb,
+                                   run_id=self.run_id, exp_name=exp_name,
+                                   config=cfg.raw)
+        self.run_id = self.logger.run_id
+
+    # ------------------------------------------------------------------
+    def _init_model(self) -> None:
+        cfg = self.config
+        self.checkpoint = Checkpoint(self.out_dir, config_yaml=cfg.to_yaml())
+        if self.args.train or self.args.resume:
+            ckpt_name = "model.msgpack"
+        else:
+            ckpt_name = "best_model_all.msgpack"
+        load_dict: Dict[str, Any] = {}
+        if not self.checkpoint.exists(ckpt_name) and (
+                self.args.eval or self.args.inference) and not self.args.train:
+            raise FileNotFoundError(
+                f"{ckpt_name} not found in {self.out_dir}; run training "
+                "first or point -s at a run with a best checkpoint")
+        if self.checkpoint.exists(ckpt_name):
+            template = dict.fromkeys(_STATE_FIELDS)
+            state, load_dict = self.checkpoint.load(ckpt_name, template)
+            try:
+                load_trainer_state(
+                    self.trainer, state,
+                    [f for f in _STATE_FIELDS
+                     if f not in self.checkpoint.last_missing])
+            except (KeyError, ValueError):
+                # the fields do not fit this model (e.g. an EMA config
+                # reading a run saved without EMA): params alone, with a
+                # fresh optimizer state, as the JAX Experiment does
+                load_trainer_state(self.trainer, state, ["params"])
+            print(f"Loaded checkpoint {ckpt_name}.")
+        self.it = load_dict.get("it", -1)
+        self.time_elapsed = load_dict.get("t", 0.0)
+        self.run_id = load_dict.get("run_id", None)
+        self.best_metrics = {"ssim": load_dict.get("ssim", -np.inf),
+                             "psnr": load_dict.get("psnr", -np.inf)}
+
+    def _save_ckpt(self, filename: str, **extra) -> None:
+        """Save the trainer's state, through the async writer unless
+        ``tpu.async_checkpoint`` is off."""
+        state = trainer_state_to_jax(self.trainer)
+        if self.config.train.async_checkpoint:
+            self.checkpoint.save_async(filename, state, **extra)
+        else:
+            self.checkpoint.save(filename, state, **extra)
+
+    # ------------------------------------------------------------------
+    def _init_dataloaders(self) -> None:
+        cfg = self.config
+        self.local_batch_size = cfg.data.batch_size
+        n_micro = cfg.train.grad_accum
+        if self.local_batch_size % n_micro:
+            raise ValueError(
+                f"tpu.grad_accum={n_micro} must divide the batch "
+                f"{self.local_batch_size} (data.batch_size)")
+        self.micro_batch_size = self.local_batch_size // n_micro
+        seed = cfg.train.seed
+        native_threads = cfg.train.native_threads
+        if ("native_threads" not in cfg.raw.get("tpu", {})
+                and cfg.data.num_workers > 1):
+            native_threads = cfg.data.num_workers
+            print(f"data.num_workers={cfg.data.num_workers} -> "
+                  f"{native_threads} native decode threads")
+        out_dtype = np.uint8 if cfg.train.u8_feed else np.float32
+        keys = ["target", self.cond_key, self.angle_key]
+
+        self.train_loader: Optional[Iterator] = None
+        self.train_stream = None
+        if self.args.train:
+            self.train_stream = create_nmr_stream(
+                cfg.data.train, shuffle_buffer=1000, seed=seed,
+                resample=True, relative=self.relative,
+                native=cfg.train.native_loader,
+                native_threads=native_threads, needed_keys=keys,
+                n_cond_views=self.max_views, out_dtype=out_dtype)
+            self.train_loader = prefetch(
+                iter(Batcher(self.train_stream, self.micro_batch_size,
+                             n_cond_views=self.max_views, keys=keys)),
+                depth=2 * n_micro)
+
+        self.epoch_size = max(1, cfg.data.test.size // self.local_batch_size)
+        exact = cfg.train.eval_exact_epoch
+
+        def val_loader():
+            stream = create_nmr_stream(
+                cfg.data.test, shuffle_buffer=0, seed=seed + 1,
+                resample=not exact, relative=self.relative,
+                native=cfg.train.native_loader,
+                native_threads=native_threads, needed_keys=keys,
+                n_cond_views=self.max_views, out_dtype=out_dtype)
+            it = iter(Batcher(stream, self.local_batch_size,
+                              n_cond_views=self.max_views, keys=keys,
+                              pad_final=exact))
+            if exact:  # one pass over the shards, each sample once
+                yield from it
+            else:  # the first epoch_size batches of the resampled stream
+                for _ in range(self.epoch_size):
+                    yield next(it)
+
+        self.val_loader = val_loader
+        # tpu.eval_train_split: a held-in pass over the train shards with
+        # test-time sample semantics, logged as ssim_train/psnr_train
+        self.train_eval_loader = None
+        if cfg.train.eval_train_split and self.args.train:
+            def train_eval_loader():
+                stream = create_nmr_stream(
+                    cfg.data.train, shuffle_buffer=0, seed=seed + 3,
+                    resample=True, relative=self.relative,
+                    process_mode="test", native=cfg.train.native_loader,
+                    native_threads=native_threads, needed_keys=keys,
+                    n_cond_views=self.max_views, out_dtype=out_dtype)
+                it = iter(Batcher(stream, self.local_batch_size,
+                                  n_cond_views=self.max_views, keys=keys))
+                for _ in range(self.epoch_size):
+                    yield next(it)
+
+            self.train_eval_loader = train_eval_loader
+        # the fixed 12-sample visualization batch, drawn once
+        vis_stream = create_nmr_stream(
+            cfg.data.test, shuffle_buffer=0, seed=seed + 2, resample=True,
+            relative=self.relative, native=cfg.train.native_loader,
+            native_threads=native_threads)
+        self.val_vis_data = next(iter(Batcher(vis_stream, batch_size=12)))
+
+    # ------------------------------------------------------------------
+    def _host_prep(self, batch: Dict[str, np.ndarray],
+                   view_count: np.ndarray, packed_idx=None
+                   ) -> Dict[str, np.ndarray]:
+        prepped = {
+            "target": batch["target"],
+            self.cond_key: batch[self.cond_key],
+            self.angle_key: np.asarray(batch[self.angle_key]).reshape(-1),
+            "view_count": view_count.astype(np.int32),
+        }
+        if "eval_mask" in batch:
+            prepped["eval_mask"] = batch["eval_mask"]
+        if packed_idx is not None:
+            prepped["sample_idx"], prepped["view_idx"] = packed_idx
+        return prepped
+
+    def _to_device(self, host: Dict[str, np.ndarray],
+                   stream=None) -> Dict[str, torch.Tensor]:
+        """Host batch -> tensors on the device: pinned copies sent with
+        non-blocking copies on ``stream`` (the current stream if None)."""
+        out = {}
+        for k, v in host.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.device.type == "cuda":
+                with torch.cuda.stream(stream or
+                                       torch.cuda.current_stream()):
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t
+        return out
+
+    def _sample_view_count(self, n: int) -> np.ndarray:
+        """view_count ~ U{1..max_views} per sample."""
+        return self.rng.integers(1, self.max_views + 1, (n,))
+
+    def _packed_counts(self, salt: int, batch: Optional[int] = None):
+        return global_packed_counts(
+            self.config.train.seed, salt,
+            self.local_batch_size if batch is None else batch,
+            self.max_views)
+
+    def _device_feed(self, first_it: int, depth: int = 2):
+        """Packed path: a thread derives each step's view counts (a
+        function of (seed, it) alone), assembles the batch and sends it
+        to the device on its own stream, keeping ``depth`` steps ahead;
+        the consumer waits on the copy's event before using it."""
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        stop = object()
+        cuda = self.device.type == "cuda"
+        side = torch.cuda.Stream(self.device) if cuda else None
+        n_micro = self.config.train.grad_accum
+
+        def worker():
+            it = first_it
+            try:
+                micro = []
+                for batch in self.train_loader:
+                    vc, si, vi = self._packed_counts(
+                        it * n_micro + len(micro), self.micro_batch_size)
+                    micro.append(self._host_prep(batch, vc, (si, vi)))
+                    if len(micro) < n_micro:
+                        continue
+                    host = micro[0] if n_micro == 1 else {
+                        k: np.stack([m[k] for m in micro]) for k in micro[0]}
+                    dev = self._to_device(host, side)
+                    event = None
+                    if cuda:
+                        event = torch.cuda.Event()
+                        event.record(side)
+                    q.put((dev, event))
+                    micro = []
+                    it += 1
+                q.put(stop)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                q.put(e)
+
+        threading.Thread(target=worker, daemon=True,
+                         name="device-feed").start()
+        while True:
+            item = q.get()
+            if item is stop:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            batch, event = item
+            if event is not None:
+                main = torch.cuda.current_stream(self.device)
+                main.wait_event(event)
+                for t in batch.values():  # freed only after main's use
+                    t.record_stream(main)
+            yield batch
+
+    # ------------------------------------------------------------------
+    def train(self) -> None:
+        summary_best = self.logger.best_metric_summary()
+        if summary_best is not None:
+            self.best_metrics.update(summary_best)
+        # SIGTERM asks for a final rolling checkpoint at the next step
+        self._stop_requested = False
+
+        def _request_stop(signum, frame):
+            self._stop_requested = True
+
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, _request_stop)
+        except ValueError:  # not the main thread
+            prev_handler = None
+        try:
+            self._train_loop(self.config.train)
+        finally:
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+            # queued saves reach the disk on any exit; a writer error is
+            # swallowed only while another exception unwinds
+            unwinding = sys.exc_info()[0] is not None
+            try:
+                self.checkpoint.flush()
+            except RuntimeError:
+                if not unwinding:
+                    raise
+
+    def _profile(self, cfg) -> None:
+        """Start or stop ``torch.profiler`` at ``tpu.profile_from`` and
+        ``profile_from + profile_steps``; the trace goes to
+        ``<run>/profile``."""
+        if cfg.profile_steps <= 0:
+            return
+        if self.it == cfg.profile_from:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.start()
+            self._prof_t0 = time.perf_counter()
+        elif (self.it == cfg.profile_from + cfg.profile_steps
+              and self._prof is not None):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            wall = time.perf_counter() - self._prof_t0
+            self._prof.stop()
+            path = os.path.join(self.out_dir, "profile")
+            os.makedirs(path, exist_ok=True)
+            self._prof.export_chrome_trace(
+                os.path.join(path, f"trace-{cfg.profile_from}.json"))
+            self.last_profile = (self._prof, wall, cfg.profile_steps)
+            self._prof = None
+            print(f"Profiler trace written to {path}")
+
+    def _train_loop(self, cfg) -> None:
+        acc_loss: List[torch.Tensor] = []
+        last_log = [time.perf_counter(), self.it]
+        feed = self._device_feed(self.it + 1) if cfg.packed_views else None
+        gen = self.trainer.generator
+        while True:
+            for batch in (feed if feed is not None else self.train_loader):
+                self.it += 1
+                # "it" labels the last completed step: the rolling save
+                # comes after the step, so it matches the updates made
+                checkpoint_extra = {
+                    "it": self.it, "t": self.time_elapsed,
+                    "run_id": self.run_id,
+                    **{k: float(v) for k, v in self.best_metrics.items()}}
+                self._checkpoint_extra = checkpoint_extra
+                if self._stop_requested:
+                    print("SIGTERM received: checkpointing and exiting.")
+                    self._save_ckpt("model.msgpack", **{
+                        **checkpoint_extra, "it": self.it - 1})
+                    self.checkpoint.flush()
+                    return
+                if (self.it >= cfg.validate_from and cfg.validate_every > 0
+                        and (self.it - cfg.validate_from)
+                        % cfg.validate_every == 0):
+                    self.eval()
+                    self.inference()
+                self._profile(cfg)
+
+                t0 = time.perf_counter()
+                if cfg.packed_views:
+                    step_batch = batch  # prepared by _device_feed
+                elif cfg.grad_accum > 1:
+                    group = [batch]
+                    try:
+                        for _ in range(cfg.grad_accum - 1):
+                            group.append(next(self.train_loader))
+                    except StopIteration:
+                        return  # the stream ended inside a group
+                    micro = [self._host_prep(
+                        b, self._sample_view_count(b["target"].shape[0]))
+                        for b in group]
+                    step_batch = self._to_device(
+                        {k: np.stack([m[k] for m in micro])
+                         for k in micro[0]})
+                else:
+                    step_batch = self._to_device(self._host_prep(
+                        batch,
+                        self._sample_view_count(batch["target"].shape[0])))
+                # the draws of step it are a function of (seed, it), so a
+                # resumed run draws as an unbroken one would
+                gen.manual_seed(int(np.random.SeedSequence(
+                    [cfg.seed, self.it]).generate_state(1)[0]))
+                acc_loss.append(self.trainer.train_step(step_batch))
+                self.time_elapsed += time.perf_counter() - t0
+                self.step_ends.append(time.perf_counter())
+
+                if (cfg.checkpoint_every > 0
+                        and self.it % cfg.checkpoint_every == 0
+                        and self.it > 0):
+                    self._save_ckpt("model.msgpack", **{
+                        **checkpoint_extra, "t": self.time_elapsed})
+                if cfg.log_every > 0 and self.it % cfg.log_every == 0:
+                    mean_loss = (torch.stack(acc_loss).mean().item()
+                                 if acc_loss else 0.0)
+                    acc_loss.clear()
+                    now = time.perf_counter()
+                    sps = (self.it - last_log[1]) / max(now - last_log[0],
+                                                        1e-9)
+                    last_log[:] = [now, self.it]
+                    self.log_dict.update(
+                        t=self.time_elapsed,
+                        lr=float(self.trainer.lr_fn(self.it)),
+                        loss=mean_loss, steps_per_sec=sps)
+                    self.logger.log(self.log_dict, self.it)
+                    self.log_dict = {}
+                if self.it >= cfg.max_it:
+                    print("Maximum iteration count reached.")
+                    self._save_ckpt("model.msgpack",
+                                    **self._checkpoint_extra)
+                    self.checkpoint.flush()
+                    return
+
+    # ------------------------------------------------------------------
+    def _eval_pass(self, loader, salt_base: int, dump: bool,
+                   key_base: int = 0):
+        """One metric pass over ``loader``: full generation, then masked
+        SSIM/PSNR sums.  Returns (ssim, psnr, sample_count)."""
+        tc = self.config.train
+        ssims, psnrs, weights = [], [], []
+        packed = tc.packed_views and not tc.eval_iid_counts
+        for val_batch in loader():
+            k = len(ssims)
+            if packed:
+                vc, si, vi = self._packed_counts(salt_base + k)
+                host = self._host_prep(val_batch, vc, (si, vi))
+            else:
+                host = self._host_prep(val_batch, self._sample_view_count(
+                    val_batch["target"].shape[0]))
+            batch = self._to_device(host)
+            gen = salted_generator(tc.seed + 17, key_base + k, self.device)
+            with torch.no_grad():
+                out = self.trainer._eval_samples(gen, batch)
+                target = norm_img(batch["target"])
+                mask = batch.get("eval_mask")
+                if mask is None:
+                    mask = torch.ones(out.shape[0], device=self.device)
+                ssims.append(torch.sum(compute_ssim(out, target) * mask))
+                psnrs.append(torch.sum(compute_psnr(out, target) * mask))
+                weights.append(torch.sum(mask))
+            if dump and tc.eval_dump_images:
+                self._dump_eval_images(out, target, k,
+                                       mask=mask.cpu().numpy())
+        count = float(torch.stack(weights).sum())
+        ssim = float(torch.stack(ssims).sum() / count)
+        psnr = float(torch.stack(psnrs).sum() / count)
+        return ssim, psnr, count
+
+    def eval(self) -> None:
+        """Full-generation metric eval and the best-model files."""
+        print("Running metric evaluation...")
+        t0 = time.perf_counter()
+        ssim, psnr, count = self._eval_pass(
+            self.val_loader, salt_base=1_000_000_000, dump=True)
+        self.eval_seconds.append(time.perf_counter() - t0)
+        self.last_eval_count = count
+        self.log_dict["ssim"] = ssim
+        self.log_dict["psnr"] = psnr
+        print(f"eval: ssim={ssim:.4f} psnr={psnr:.2f} (n={int(count)})")
+        if self.train_eval_loader is not None:
+            tr_ssim, tr_psnr, tr_n = self._eval_pass(
+                self.train_eval_loader, salt_base=2_000_000_000,
+                dump=False, key_base=1_000_000)
+            self.log_dict["ssim_train"] = tr_ssim
+            self.log_dict["psnr_train"] = tr_psnr
+            print(f"eval[train-split]: ssim={tr_ssim:.4f} "
+                  f"psnr={tr_psnr:.2f} (n={int(tr_n)})")
+        if self.args.train:
+            best_cnt = 0
+            extra = getattr(self, "_checkpoint_extra", {"it": self.it})
+            if ssim > self.best_metrics["ssim"]:
+                best_cnt += 1
+                self.best_metrics["ssim"] = ssim
+                extra.update(ssim=ssim)
+                self._save_ckpt("best_model_ssim.msgpack", **extra)
+            if psnr > self.best_metrics["psnr"]:
+                best_cnt += 1
+                self.best_metrics["psnr"] = psnr
+                extra.update(psnr=psnr)
+                self._save_ckpt("best_model_psnr.msgpack", **extra)
+            if best_cnt == 2:
+                self._save_ckpt("best_model_all.msgpack", **extra)
+        self.checkpoint.flush()
+        if not self.args.train:
+            # a standalone -e leaves its record in metrics.jsonl
+            self.logger.log(self.log_dict, max(self.it, 0))
+            self.log_dict = {}
+
+    def _dump_eval_images(self, gen, target, batch_idx: int,
+                          mask=None) -> None:
+        """Generated/target PNG pairs for offline metrics."""
+        root = os.path.join(self.out_dir, f"images-{max(self.it, 0)}")
+        gdir, tdir = os.path.join(root, "generated"), os.path.join(
+            root, "target")
+        os.makedirs(gdir, exist_ok=True)
+        os.makedirs(tdir, exist_ok=True)
+        gen, target = gen.cpu().numpy(), target.cpu().numpy()
+        for i in range(gen.shape[0]):
+            if mask is not None and mask[i] == 0.0:
+                continue  # exact-epoch padding row
+            stem = f"{batch_idx:04d}-{i:04d}.png"
+            save_png(np.clip(gen[i], 0, 1), os.path.join(gdir, stem))
+            save_png(target[i], os.path.join(tdir, stem))
+
+    # ------------------------------------------------------------------
+    def inference(self) -> None:
+        """The vis grid during training; -ex/-ar/-gif under -i."""
+        if self.args.train:
+            self._train_vis_grid()
+        elif self.args.inference:
+            if self.args.extrapolate:
+                self.extrapolate()
+            if self.args.autoregressive:
+                self.autoregressive()
+            if self.args.generate_gifs:
+                self.generate_gif()
+        self.logger.log(self.log_dict, max(self.it, 0))
+        self.log_dict = {}
+
+    def _grid_output(self, ret_arr, target, cond, view_count,
+                     name: str) -> None:
+        """Denoising frames | target | conditioning views, a row each."""
+        vmax = int(np.max(view_count))
+        mask = (np.arange(vmax)[None, :] < view_count[:, None]).astype(
+            np.float32)
+        cond_rgb = cond[..., -3:]  # relative mode: the last 3 channels
+        cond_padded = cond_rgb[:, :vmax] * mask[:, :, None, None, None]
+        output = np.concatenate((np.clip(ret_arr, 0, 1), target[:, None],
+                                 cond_padded), axis=1)
+        b, s = output.shape[:2]
+        grid = make_grid(output.reshape(b * s, *output.shape[2:]), nrow=s,
+                         scale_each=True)
+        self.logger.log_image(name, grid, max(self.it, 0),
+                              caption="Denoising steps, Target, Input View")
+
+    def _train_vis_grid(self) -> None:
+        batch = self.val_vis_data
+        cond = batch[self.cond_key][:, :self.max_views]
+        angle = np.asarray(batch[self.angle_key]).reshape(-1)
+        target = batch["target"]
+        view_count = self._sample_view_count(target.shape[0])
+        out = self.trainer._generate_np(cond, view_count, angle)
+        self._grid_output(out.ret_arr, target, cond, view_count, "output")
+
+    def extrapolate(self) -> None:
+        """view_count ~ U{max_views+1 .. 23}: more views than training."""
+        print("Running extrapolate image generation...")
+        batch = self.val_vis_data
+        target, cond = batch["target"], batch["cond"]
+        angle = np.asarray(batch["angle"]).reshape(-1)
+        view_count = self._sample_extrapolate_counts(target.shape[0],
+                                                     cond.shape[1])
+        out = self.trainer._generate_np(cond, view_count, angle, key_salt=1)
+        self._grid_output(out.ret_arr, target, cond, view_count,
+                          "extrapolate")
+
+    def _sample_extrapolate_counts(self, n: int, total: int) -> np.ndarray:
+        """U{max_views+1 .. total}, ``total`` the stored cond views."""
+        return self.rng.integers(self.max_views + 1, total + 1, (n,))
+
+    def autoregressive(self) -> None:
+        """A 24-view orbit generated in sequence, each view joining the
+        conditioning set of the next (a static (1, 24, ...) buffer with a
+        growing view count)."""
+        print("Running autoregressive generation...")
+        total = self.config.data.total_views
+        all_views = np.asarray(self.val_vis_data["all_views"])[10:11]
+        h, w = all_views.shape[2:4]
+        cond = np.zeros((1, total, h, w, 3), np.float32)
+        cond[:, 0] = all_views[:, 0]
+        cond_list, sample_list = [], []
+        for count in range(1, total + 1):
+            angle = np.asarray([2 * np.pi / total * count], np.float32)
+            sample = self.trainer._sample_only_np(
+                cond, np.asarray([count]), angle, key_salt=100 + count)[0]
+            if count < total:
+                cond[:, count] = sample
+            cond_list.append(cond[0, :count].copy())
+            sample_list.append(sample)
+        frames = []
+        for count, (conds, sample) in enumerate(
+                zip(cond_list, sample_list), start=1):
+            padded = np.ones((total, h, w, 3), np.float32)
+            padded[:count] = np.clip(conds, 0, 1)
+            row = np.concatenate([padded, np.clip(sample, 0, 1)[None]], 0)
+            frames.append(to_uint8(make_grid(row, nrow=total + 1)))
+        self.logger.log_image("autoregressive_single", frames[0],
+                              max(self.it, 0))
+        self.logger.log_video("autoregressive_animated", frames,
+                              max(self.it, 0))
+
+    def generate_gif(self) -> None:
+        """An orbit animation with each view's weight maps."""
+        print("Running animation sequence generation...")
+        obj = 10
+        total = self.config.data.total_views
+        views = np.asarray(self.val_vis_data["all_views"])  # (12,24,H,W,3)
+        angles = np.asarray([2 * np.pi / total * i for i in range(total)],
+                            np.float32)
+        target = views[obj]
+        cond_views = np.stack([views[obj, ::4]] * total, axis=0)
+        view_counts = np.full((total,), cond_views.shape[1])
+        out = self.trainer._generate_np(cond_views, view_counts, angles,
+                                        key_salt=2)
+        ret, weights = out.ret_arr, out.weight_arr
+        if weights is None:
+            raise ValueError(
+                "generate_gif needs weighting_inference=True (no weight "
+                "maps in the no-weighting ablation)")
+        n_cond = cond_views.shape[1]
+        frames = []
+        for i in range(total):
+            rows = np.concatenate([weights[i], cond_views[i][None]], axis=0)
+            gen_col = np.clip(ret[i][:, None], 0, 1)
+            rows = np.concatenate([rows, gen_col], axis=1)
+            target_row = np.stack([target[i]] * (n_cond + 1))[None]
+            rows = np.concatenate([rows, target_row], axis=0)
+            s, v = rows.shape[:2]
+            grid = make_grid(rows.transpose(1, 0, 2, 3, 4).reshape(
+                v * s, *rows.shape[2:]), nrow=s, pad_value=0.9)
+            frames.append(to_uint8(grid))
+        self.logger.log_video("weights_animated", frames, max(self.it, 0))

@@ -1,90 +1,272 @@
-"""JAX (flax) UNet params -> the port's UNet ``state_dict``.
+"""The port's UNet and training state <-> the JAX package's trees.
 
-The inverse of ``viewfusion_tpu.utils.torch_convert.convert_unet_state_dict``
-(the port keeps its own copy of the name map):
+The UNet map (the port keeps its own copy of the name map of
+``viewfusion_tpu/utils/torch_convert.py``):
 
-  * conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw)
-  * Dense kernel (I, O)        -> Linear weight (O, I)
-  * GroupNorm scale / bias     -> weight / bias
+  * conv kernel (kh, kw, I, O) <-> weight (O, I, kh, kw)
+  * Dense kernel (I, O)        <-> Linear weight (O, I)
+  * GroupNorm scale / bias     <-> weight / bias
 
-The input is the JAX package's ``{"params": {...}}`` tree as nested
-dicts of numpy arrays (anything ``np.asarray`` takes).
+and the training state, in the layout of the JAX ``TrainState``'s state
+dict (what a JAX checkpoint file holds):
+
+  * ``params``     <-> the UNet's parameters (``{"params": {...}}``);
+  * ``opt_state``  <-> ``torch.optim.Adam``'s state: optax's
+    ``{"0": {"count", "mu", "nu"}, "1": {"count"}}`` with ``mu``/``nu``
+    the ``exp_avg``/``exp_avg_sq`` trees and both counts the updates made;
+  * ``step``       <-> ``Trainer.step`` (int32, shape ());
+  * ``ema_params`` <-> the EMA shadow (``{}`` without EMA).
+
+JAX-side trees are nested dicts of numpy arrays (anything ``np.asarray``
+takes); the port's side stays torch.  Moments map like the weights they
+belong to, since both are elementwise in the parameter.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["unet_state_dict_from_jax"]
+__all__ = ["unet_state_dict_from_jax", "unet_params_to_jax",
+           "trainer_state_to_jax", "load_trainer_state"]
+
+# kind -> ((torch suffix, JAX leaf, torch->JAX axes), ...)
+_LEAVES = {
+    "linear": (("weight", "kernel", (1, 0)), ("bias", "bias", None)),
+    "conv": (("weight", "kernel", (2, 3, 1, 0)), ("bias", "bias", None)),
+    "norm": (("weight", "scale", None), ("bias", "bias", None)),
+}
+_INVERSE = {(1, 0): (1, 0), (2, 3, 1, 0): (3, 2, 0, 1)}
+
+# (torch module prefix, JAX module path, kind, optional)
+_Entry = Tuple[str, Tuple[str, ...], str, bool]
 
 
-def unet_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    p = params["params"] if "params" in params else params
-    sd: Dict[str, np.ndarray] = {}
-
-    def linear(dst, src):
-        sd[f"{dst}.weight"] = np.transpose(np.asarray(src["kernel"]), (1, 0))
-        sd[f"{dst}.bias"] = np.asarray(src["bias"])
-
-    def conv(dst, src):
-        sd[f"{dst}.weight"] = np.transpose(np.asarray(src["kernel"]),
-                                           (3, 2, 0, 1))
-        if "bias" in src:
-            sd[f"{dst}.bias"] = np.asarray(src["bias"])
-
-    def norm(dst, src):
-        sd[f"{dst}.weight"] = np.asarray(src["scale"])
-        sd[f"{dst}.bias"] = np.asarray(src["bias"])
+def _entries(num_mults: int, res_blocks: int) -> List[_Entry]:
+    out: List[_Entry] = []
 
     def block(dst, src):
-        norm(f"{dst}.block.0", src["GroupNorm_0"])
-        conv(f"{dst}.block.3", src["Conv_0"])
+        out.append((f"{dst}.block.0", src + ("GroupNorm_0",), "norm", False))
+        out.append((f"{dst}.block.3", src + ("Conv_0",), "conv", False))
 
     def block_with_attn(dst, src):
-        r = src["ResnetBlock_0"]
-        block(f"{dst}.res_block.block1", r["Block_0"])
-        block(f"{dst}.res_block.block2", r["Block_1"])
-        linear(f"{dst}.res_block.noise_func.noise_func.0",
-               r["FeatureWiseAffine_0"]["noise_func"])
-        if "res_conv" in r:
-            conv(f"{dst}.res_block.res_conv", r["res_conv"])
-        if "SelfAttention_0" in src:
-            a = src["SelfAttention_0"]
-            norm(f"{dst}.attn.norm", a["GroupNorm_0"])
-            conv(f"{dst}.attn.qkv", a["qkv"])
-            conv(f"{dst}.attn.out", a["out"])
+        r = src + ("ResnetBlock_0",)
+        block(f"{dst}.res_block.block1", r + ("Block_0",))
+        block(f"{dst}.res_block.block2", r + ("Block_1",))
+        out.append((f"{dst}.res_block.noise_func.noise_func.0",
+                    r + ("FeatureWiseAffine_0", "noise_func"), "linear",
+                    False))
+        out.append((f"{dst}.res_block.res_conv", r + ("res_conv",), "conv",
+                    True))
+        a = src + ("SelfAttention_0",)
+        out.append((f"{dst}.attn.norm", a + ("GroupNorm_0",), "norm", True))
+        out.append((f"{dst}.attn.qkv", a + ("qkv",), "conv", True))
+        out.append((f"{dst}.attn.out", a + ("out",), "conv", True))
 
-    # the structure (scales, res blocks per scale) is read off the names
-    downs = sorted({tuple(map(int, m.groups())) for m in
-                    (re.fullmatch(r"down_(\d+)_(\d+)", k) for k in p) if m})
-    num_mults = max(i for i, _ in downs) + 1
-    res_blocks = max(j for _, j in downs) + 1
-
-    linear("noise_level_mlp.0", p["noise_mlp_0"])
-    linear("noise_level_mlp.2", p["noise_mlp_1"])
-    conv("downs.0", p["stem"])
+    out.append(("noise_level_mlp.0", ("noise_mlp_0",), "linear", False))
+    out.append(("noise_level_mlp.2", ("noise_mlp_1",), "linear", False))
+    out.append(("downs.0", ("stem",), "conv", False))
     idx = 1
     for ind in range(num_mults):
         for blk in range(res_blocks):
-            block_with_attn(f"downs.{idx}", p[f"down_{ind}_{blk}"])
+            block_with_attn(f"downs.{idx}", (f"down_{ind}_{blk}",))
             idx += 1
         if ind != num_mults - 1:
-            conv(f"downs.{idx}.conv", p[f"downsample_{ind}"]["Conv_0"])
+            out.append((f"downs.{idx}.conv", (f"downsample_{ind}", "Conv_0"),
+                        "conv", False))
             idx += 1
-    block_with_attn("mid.0", p["mid_0"])
-    block_with_attn("mid.1", p["mid_1"])
+    block_with_attn("mid.0", ("mid_0",))
+    block_with_attn("mid.1", ("mid_1",))
     idx = 0
     for ind in reversed(range(num_mults)):
         for blk in range(res_blocks + 1):
-            block_with_attn(f"ups.{idx}", p[f"up_{ind}_{blk}"])
+            block_with_attn(f"ups.{idx}", (f"up_{ind}_{blk}",))
             idx += 1
         if ind >= 1:
-            conv(f"ups.{idx}.conv", p[f"upsample_{ind}"]["Conv_0"])
+            out.append((f"ups.{idx}.conv", (f"upsample_{ind}", "Conv_0"),
+                        "conv", False))
             idx += 1
-    block("final_conv", p["final_conv"])
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
-            for k, v in sd.items()}
+    block("final_conv", ("final_conv",))
+    return out
+
+
+def _get(tree, path):
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree
+
+
+def _jax_structure(p: Dict[str, Any]) -> Tuple[int, int]:
+    downs = sorted({tuple(map(int, m.groups())) for m in
+                    (re.fullmatch(r"down_(\d+)_(\d+)", k) for k in p) if m})
+    if not downs:
+        raise ValueError("not a UNet params tree (no down_<i>_<j> blocks)")
+    return max(i for i, _ in downs) + 1, max(j for _, j in downs) + 1
+
+
+def _torch_structure(names) -> Tuple[int, int]:
+    downs = {int(m.group(1)) for m in
+             (re.match(r"downs\.(\d+)\.", k) for k in names) if m}
+    samples = {int(m.group(1)) for m in
+               (re.match(r"downs\.(\d+)\.conv\.", k) for k in names) if m}
+    if not downs:
+        raise ValueError("not a UNet state_dict (no downs.<i> modules)")
+    num_mults = len(samples) + 1
+    # downs = the stem, num_mults * res_blocks blocks, num_mults - 1 convs
+    return num_mults, (len(downs) - num_mults) // num_mults
+
+
+def _jax_to_torch_tree(p: Dict[str, Any], convert: Callable
+                       ) -> Dict[str, Any]:
+    sd: Dict[str, Any] = {}
+    for prefix, path, kind, optional in _entries(*_jax_structure(p)):
+        src = _get(p, path)
+        if src is None:
+            if optional:
+                continue
+            raise KeyError(f"JAX params lack {'/'.join(path)}")
+        for t_leaf, j_leaf, axes in _LEAVES[kind]:
+            if j_leaf in src:
+                a = np.asarray(src[j_leaf])
+                if axes is not None:
+                    a = np.transpose(a, _INVERSE[axes])
+                sd[f"{prefix}.{t_leaf}"] = convert(a)
+            elif t_leaf == "weight" or kind != "conv":
+                raise KeyError(f"JAX params lack {'/'.join(path)}/{j_leaf}")
+    return sd
+
+
+def _torch_to_jax_tree(sd: Dict[str, Any], convert: Callable
+                       ) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    used = set()
+    for prefix, path, kind, optional in _entries(*_torch_structure(sd)):
+        if f"{prefix}.weight" not in sd:
+            if optional:
+                continue
+            raise KeyError(f"state_dict lacks {prefix}.weight")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        for t_leaf, j_leaf, axes in _LEAVES[kind]:
+            name = f"{prefix}.{t_leaf}"
+            if name in sd:
+                v = sd[name]
+                node[j_leaf] = convert(v if axes is None else v.permute(axes))
+                used.add(name)
+    extra = set(sd) - used
+    if extra:
+        raise KeyError(f"state_dict entries with no JAX counterpart: "
+                       f"{sorted(extra)[:5]}")
+    return tree
+
+
+def unet_state_dict_from_jax(params: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX ``{"params": {...}}`` (or the inner tree) -> the port's UNet
+    ``state_dict`` (f32 CPU tensors)."""
+    p = params["params"] if "params" in params else params
+    return _jax_to_torch_tree(
+        p, lambda a: torch.from_numpy(np.array(a, dtype=np.float32)))
+
+
+def unet_params_to_jax(state_dict: Dict[str, torch.Tensor]
+                       ) -> Dict[str, Any]:
+    """The port's UNet ``state_dict`` -> JAX ``{"params": {...}}`` of
+    numpy f32 arrays."""
+    return {"params": _torch_to_jax_tree(
+        state_dict,
+        lambda t: np.ascontiguousarray(
+            t.detach().cpu().numpy().astype(np.float32)))}
+
+
+def _named_params(trainer) -> Dict[str, torch.Tensor]:
+    return dict(trainer.model.unet.named_parameters())
+
+
+def _count(n: int) -> np.ndarray:
+    return np.asarray(n, np.int32)
+
+
+def trainer_state_to_jax(trainer) -> Dict[str, Any]:
+    """The ``Trainer``'s state as the JAX ``TrainState`` state dict.  Its
+    leaves are torch tensors on the trainer's device, in the JAX layout
+    (possibly transposed views); the checkpoint writer copies them to
+    the host."""
+    named = _named_params(trainer)
+    as_is = (lambda t: t.detach())
+    params = {"params": _torch_to_jax_tree(named, as_is)}
+    moments = []
+    for key in ("exp_avg", "exp_avg_sq"):
+        st = trainer.optimizer.state
+        moments.append({"params": _torch_to_jax_tree(
+            {n: st[p][key] if p in st else torch.zeros_like(p)
+             for n, p in named.items()}, as_is)})
+    ema: Dict[str, Any] = {}
+    if trainer.ema is not None:
+        ema = {"params": _torch_to_jax_tree(
+            dict(zip(named, trainer.ema)), as_is)}
+    count = _count(trainer.step)
+    return {"params": params,
+            "opt_state": {"0": {"count": count, "mu": moments[0],
+                                "nu": moments[1]},
+                          "1": {"count": count}},
+            "step": count, "ema_params": ema}
+
+
+def _copy_into(dst: List[torch.Tensor], names: List[str],
+               src: Dict[str, torch.Tensor], what: str) -> None:
+    for name, t in zip(names, dst):
+        v = src[name]
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"{what} {name}: shape {tuple(v.shape)} in the "
+                             f"file, {tuple(t.shape)} in the model")
+    with torch.no_grad():
+        for name, t in zip(names, dst):
+            t.copy_(src[name])
+
+
+def load_trainer_state(trainer, state: Dict[str, Any],
+                       fields: Optional[List[str]] = None) -> None:
+    """Set the ``Trainer``'s state from a JAX ``TrainState`` state dict
+    (numpy leaves).  ``fields`` names the top-level fields to take (all
+    four by default); a ``Trainer`` without EMA ignores ``ema_params``.
+    Raises KeyError or ValueError when a field does not match the
+    model."""
+    fields = list(state) if fields is None else fields
+    named = _named_params(trainer)
+    names, params = list(named), list(named.values())
+
+    def torch_tree(tree):
+        p = tree["params"] if "params" in tree else tree
+        return _jax_to_torch_tree(
+            p, lambda a: torch.from_numpy(np.array(a, dtype=np.float32)))
+
+    if "params" in fields:
+        _copy_into(params, names, torch_tree(state["params"]), "params")
+    if "ema_params" in fields and trainer.ema is not None:
+        _copy_into(trainer.ema, names, torch_tree(state["ema_params"]),
+                   "ema_params")
+    if "opt_state" in fields:
+        adam = state["opt_state"]["0"]
+        count = int(np.asarray(adam["count"]))
+        mu, nu = torch_tree(adam["mu"]), torch_tree(adam["nu"])
+        st = trainer.optimizer.state
+        for name, p in named.items():
+            for key, src in (("exp_avg", mu), ("exp_avg_sq", nu)):
+                if tuple(src[name].shape) != tuple(p.shape):
+                    raise ValueError(f"opt_state {key} {name}: shape "
+                                     f"{tuple(src[name].shape)} in the file")
+        st.clear()
+        if count > 0:
+            for name, p in named.items():
+                st[p] = {"step": torch.tensor(float(count)),
+                         "exp_avg": mu[name].to(p.device),
+                         "exp_avg_sq": nu[name].to(p.device)}
+    if "step" in fields:
+        trainer.step = int(np.asarray(state["step"]))

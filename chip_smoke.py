@@ -65,7 +65,36 @@ Phases (any failure raises and exits non-zero without the final line):
      the phase; the stream's reader (native and codec readers compared),
      the loop's ms per step against phase 10's Trainer, one synchronous
      save and one load of model.msgpack, each eval pass, and the device's
-     idle share of a profiled loop step.
+     idle share of a profiled loop step;
+ 17. K3 at the DiT's sites (configs/dit-small-tpu-4.yaml: hidden 384,
+     depth 12, 6 heads of 64, 256 tokens, bf16): (48 x 6, 256, 64) and
+     (98 x 6, 256, 64), q, k and v the planes of one (3, B, S, hd) copy as
+     MHAttention hands them over, against the plain version, timed with
+     SDPA and the byte bound;
+ 18. DiT serving, the fifth main path: ViewFusionService on a DiT run
+     dir written by write_run_dir (seeded weights, zero-init layers
+     perturbed) answers 24 requests x 6 views with DDIM 50 in three
+     batches of 8; exactly 12 K3 launches per DiT forward; a profiled
+     forward;
+ 19. DiT training, the sixth: the Trainer takes TRAIN_STEPS steps at
+     batch 28 (the 4-chip batch of 112 cut to one card's 28: R = 98),
+     without and with tpu.remat (12 and 24 K3 launches per step), ms per
+     step, peak memory, a profiled step; two tiny f32 DiT train steps on
+     the card against the CPU;
+ 20. the DiT ancestral chain, the seventh: one 100-step segment of the
+     T = 2000 chain at 28 packed rows, exactly 12 K3 launches per step,
+     ms per step and the device's busy share;
+ 21. the offline tools: LPIPS (seeded random VGG16 weights) on 28 pairs
+     at 64 px, card against CPU; compute_metrics over a PNG dump on the
+     card against the CPU;
+ 22. the experiment loop on the DiT: cli.main -t at
+     configs/dit-small-tpu-4.yaml (batch 28) for 10 steps with an eval
+     and an ancestral vis grid at it = 10, then -e, on synthetic 64 px
+     shards; exactly 12 K3 launches per DiT forward over the phase, and
+     model.msgpack holds the DiT's tree.  After phase 22, K3 is held
+     against its plain version at every (B, S, C) that phases 18-22 gave
+     it on the card (recorded by a wrapper around the DiT's call), the
+     errors joining K3's in the kernels line.
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 
@@ -87,12 +116,16 @@ conv3x3 step: the loss equal bit for bit (the same forward), each conv
 weight gradient within 1e-2 relative L2 of cuDNN's (rounded to bf16, one
 ulp is 3.9e-3), all gradients within 5e-2.  The tiny ancestral chain:
 samples, frames, logits and weights within 1e-4; segmented equal to one
-call bit for bit.
+call bit for bit.  The tiny f32 DiT steps: phase 11's 1e-4.  LPIPS card
+against CPU within 1e-4 relative (f32 sums over 13 conv layers in another
+order, TF32 off); compute_metrics PSNR within 1e-6 relative, SSIM within
+1e-6, LPIPS within 1e-4 relative.
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import os
 import subprocess
@@ -127,7 +160,12 @@ from viewfusion_tpu_torch.data import native_loader
 from viewfusion_tpu_torch.data.nmr import decode_views_u8
 from viewfusion_tpu_torch.data.synthetic import make_synthetic_shards
 from viewfusion_tpu_torch.data.tario import iter_tar_samples
-from viewfusion_tpu_torch.serving import ViewFusionService, make_server
+from viewfusion_tpu_torch.models import dit as dit_module
+from viewfusion_tpu_torch.models.dit import DiT
+from viewfusion_tpu_torch.ops.lpips import load_lpips
+from viewfusion_tpu_torch.serving import (ViewFusionService, make_server,
+                                          write_run_dir)
+from viewfusion_tpu_torch.utils import compute_metrics
 from viewfusion_tpu_torch.training.checkpoint import Checkpoint
 from viewfusion_tpu_torch.training.trainer import (Trainer,
                                                    global_packed_counts,
@@ -269,7 +307,8 @@ def train_config(**tpu) -> Config:
 def train_batch(cfg, it: int, rng) -> dict:
     """One host batch in the loader's layout (uint8 images), with the
     packed view counts of step ``it`` (salt = it)."""
-    b, n, hw = cfg.data.batch_size, cfg.data.max_views, cfg.unet.image_size
+    b, n, hw = cfg.data.batch_size, cfg.data.max_views, \
+        cfg.denoiser.image_size
     counts, si, vi = global_packed_counts(cfg.train.seed, it, b, n)
     return {"target": rng.integers(0, 256, (b, hw, hw, 3), dtype=np.uint8),
             "cond": rng.integers(0, 256, (b, n, hw, hw, 3), dtype=np.uint8),
@@ -392,19 +431,25 @@ def check_group_norm(gn_sites, groups: int, device, rows: int = ROWS,
 
 
 def check_attention(attn_sites, device, rows: int = ROWS,
-                    timed: bool = True) -> dict:
+                    timed: bool = True, heads: bool = False) -> dict:
     """K3 against its plain version at each site at ``rows`` rows: q, k, v
     column slices of one (B, S, 3C) qkv buffer, as the UNet hands them
-    over.  ``timed=False`` checks without timing."""
+    over, or with ``heads`` the three planes of one (3, B, S, C) copy, as
+    the DiT's MHAttention does (B = samples x heads).  ``timed=False``
+    checks without timing."""
     g = torch.Generator(device=device).manual_seed(SEED + 2)
     tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
                          "bound_bytes_ms", "max_abs_err"), 0.0)
     cases = [(site, torch.bfloat16, n) for site, n in sorted(attn_sites.items())]
     cases.append((max(attn_sites), torch.float32, 0))
     for (s, c), dtype, count in cases:
-        qkv = torch.randn((rows, s, 3 * c), generator=g,
-                          device=device).to(dtype)
-        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+        if heads:
+            q, k, v = torch.randn((3, rows, s, c), generator=g,
+                                  device=device).to(dtype)
+        else:
+            qkv = torch.randn((rows, s, 3 * c), generator=g,
+                              device=device).to(dtype)
+            q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
         scale = 1.0 / c ** 0.5
         out = spatial_self_attention(q, k, v, scale)
         ref = spatial_self_attention_reference(q, k, v, scale)
@@ -495,6 +540,9 @@ def profile_forward(unet: UNet, device) -> None:
 def report_profile(prof, what: str, wall_ms: float) -> float:
     """Device time by kernel family from a torch.profiler run, against
     the wall time of the work it traced; returns the device time (ms).
+    cuBLAS's Hopper GEMMs are ``nvjet_*``; the f32 ones on the CUDA
+    cores (``*sgemm*``, ``*f32f32*``, ``*ffma*``: with TF32 off, the
+    attention backward's) are counted apart as "conv/gemm f32".
     Ranges that code annotates (torch.optim's ``Optimizer.step#Adam.step``)
     span kernels and are left out; kernel names may contain ``#``
     themselves (``{lambda(float)#1}``)."""
@@ -516,8 +564,11 @@ def report_profile(prof, what: str, wall_ms: float) -> float:
         key = ("K2 groupnorm bwd" if "gn_bwd" in low else
                "K1 groupnorm" if "gn_" in low else
                "K3 attention" if "attn_fwd" in low else
-               "conv/gemm" if any(w in low for w in (
-                   "conv", "gemm", "xmma", "cutlass", "cudnn", "sm90"))
+               ("conv/gemm f32" if any(t in low for t in (
+                   "sgemm", "f32f32", "ffma")) else "conv/gemm")
+               if any(w in low for w in (
+                   "conv", "gemm", "xmma", "cutlass", "cudnn", "sm90",
+                   "nvjet"))
                else "optimizer" if any(w in low for w in (
                    "multi_tensor", "foreach", "adam"))
                else "other")
@@ -800,6 +851,13 @@ def check_train_against_cpu(device) -> None:
     cfg = Config.from_dict(raw)
     torch.manual_seed(SEED)
     state = UNet(cfg.unet).state_dict()
+    train_against_cpu(device, cfg, state, "tiny f32 train steps")
+
+
+def train_against_cpu(device, cfg: Config, state: dict, what: str) -> None:
+    """Two train steps of ``cfg`` from ``state`` on the card against the
+    same steps on the CPU: losses, parameters, gradients and EMA within
+    1e-4 (gradients: of their scale)."""
     rng = np.random.default_rng(SEED + 8)
     batches = [train_batch(cfg, it, rng) for it in range(2)]
     draws = [(rng.normal(size=(4, 8, 8, 3)).astype(np.float32),
@@ -817,12 +875,12 @@ def check_train_against_cpu(device) -> None:
     errs = [max((a - b).abs().max().item() for a, b in zip(got, want))
             for got, want in zip(runs[1][1], runs[0][1])]
     gmax = max(g.abs().max().item() for g in runs[0][1][1])
-    say(f"tiny f32 train steps, card vs CPU: loss rel {loss_err:.3g}, "
+    say(f"{what}, card vs CPU: loss rel {loss_err:.3g}, "
         f"params {errs[0]:.3g}, gradients {errs[1]:.3g} (of {gmax:.3g}), "
         f"EMA {errs[2]:.3g}")
     if not (loss_err <= 1e-4 and errs[0] <= 1e-4 and errs[1] <= 1e-4 * gmax
             and errs[2] <= 1e-4):
-        raise AssertionError("card train steps disagree with the CPU")
+        raise AssertionError(f"{what}: card disagrees with the CPU")
 
 
 def is_conv3x3(m) -> bool:
@@ -1129,17 +1187,22 @@ EXP_MAX_IT, EXP_RESUME_IT = 30, 35
 EXP_FIELDS = ["params", "opt_state", "step", "ema_params"]
 
 
-def experiment_config(data_dir: str) -> str:
-    """configs/small-tpu-1.yaml through the port's YAML reader, cut to a
-    30-step run on the phase's shards; writes it beside the shards and
-    returns its path.  The model's widths stay as published."""
-    raw = parse_yaml(Path("configs/small-tpu-1.yaml").read_text())
-    changes = {"model.max_it": EXP_MAX_IT, "model.checkpoint_every": 10,
-               "model.log_every": 5, "model.validate_from": 20,
-               "model.validate_every": 10, "data.params.test.params.size": 56,
-               "tpu.sampler": "ddim", "tpu.ddim_steps": 20,
-               "tpu.ema_decay": 0.999, "tpu.profile_from": 12,
-               "tpu.profile_steps": 2}
+def experiment_config(data_dir: str, source: str = "configs/small-tpu-1.yaml",
+                      phase: int = 16, **changes) -> str:
+    """``source`` through the port's YAML reader, cut to a short run on the
+    phase's shards (phase 16: 30 steps of configs/small-tpu-1.yaml);
+    ``changes`` ("model__max_it": 10, ...) replace fields.  Writes it
+    beside the shards and returns its path.  The model's widths stay as
+    published."""
+    raw = parse_yaml(Path(source).read_text())
+    defaults = {"model.max_it": EXP_MAX_IT, "model.checkpoint_every": 10,
+                "model.log_every": 5, "model.validate_from": 20,
+                "model.validate_every": 10,
+                "data.params.test.params.size": 56, "tpu.sampler": "ddim",
+                "tpu.ddim_steps": 20, "tpu.ema_decay": 0.999,
+                "tpu.profile_from": 12, "tpu.profile_steps": 2}
+    changes = {**defaults,
+               **{k.replace("__", "."): v for k, v in changes.items()}}
     for split in ("train", "test", "validation"):
         changes[f"data.params.{split}.params.path"] = data_dir
     for key, value in changes.items():
@@ -1148,11 +1211,11 @@ def experiment_config(data_dir: str) -> str:
         for k in path:
             node = node.setdefault(k, {})
         node[last] = value
-    say("phase 16 config: configs/small-tpu-1.yaml with "
+    say(f"phase {phase} config: {source} with "
         + ", ".join(f"{k}={v}" for k, v in changes.items()
                     if not k.endswith(".path"))
         + f", data paths -> the phase's shards")
-    path = os.path.join(data_dir, "small-tpu-1-phase16.yaml")
+    path = os.path.join(data_dir, f"{Path(source).stem}-phase{phase}.yaml")
     with open(path, "w") as f:
         f.write(dump_yaml(raw))
     return path
@@ -1380,6 +1443,499 @@ def run_experiment(k1_sites: int, k3_sites: int, trainer_ms: float) -> dict:
         tmp.cleanup()
 
 
+# ----------------------------------------------------------------------
+# phases 17-22: the DiT denoiser family and the offline tools
+# ----------------------------------------------------------------------
+DIT_CONFIG = "configs/dit-small-tpu-4.yaml"
+DIT_CHAIN_STEPS = 100     # one segment of the T = 2000 chain
+# tests/test_dit.py's CFG: the card-against-CPU step
+TINY_DIT = {"image_size": 8, "in_channel": 6, "out_channel": 6,
+            "patch_size": 2, "hidden_size": 32, "depth": 2, "num_heads": 2}
+LPIPS_PAIRS = 28
+DIT_REQUESTS = 3 * BATCH  # three serving batches: one is too short to time
+
+
+def dit_config(**tpu) -> Config:
+    """configs/dit-small-tpu-4.yaml through the port's YAML reader at its
+    published widths; the batch of 112 on 4 chips cut to the per-chip 28
+    (R = 98 packed rows), as small-tpu-1 is to small-tpu-4."""
+    raw = parse_yaml(Path(DIT_CONFIG).read_text())
+    raw["data"]["params"]["batch_size"] = TRAIN_BATCH
+    raw.setdefault("tpu", {}).update(tpu)
+    return Config.from_dict(raw)
+
+
+def dit_weights(cfg: Config, sigma: float = 0.02) -> dict:
+    """Seeded f32 weights of a fresh DiT (flax's init) with every
+    zero-init tensor (the adaLN, final_adaLN and unpatchify kernels, every
+    bias) drawn from N(0, sigma^2): a fresh DiT is the zero map."""
+    torch.manual_seed(SEED)
+    dit = ViewFusion.from_config(cfg).unet
+    g = torch.Generator().manual_seed(SEED + 20)
+    return {k: (v.float() if v.any()
+                else torch.randn(v.shape, generator=g) * sigma)
+            for k, v in dit.state_dict().items()}
+
+
+def dit_sites(cfg: Config, rows: int) -> Counter:
+    """(B * heads, S, hd) of the DiT's K3 calls per forward at ``rows``."""
+    d = cfg.denoiser
+    tokens = (d.image_size // d.patch_size) ** 2
+    return Counter({(rows * d.num_heads, tokens,
+                     d.hidden_size // d.num_heads): d.depth})
+
+
+def check_attention_dit(cfg: Config, device) -> dict:
+    """Phase 17: K3 at the DiT's sites, at the serving (48) and the
+    training (98) rows, against its plain version, timed with SDPA and
+    the bound; returns the per-forward totals at each row count."""
+    out = {}
+    for rows in (ROWS, TRAIN_ROWS):
+        (b, s, c), n = next(iter(dit_sites(cfg, rows).items()))
+        say(f"DiT K3 site at {rows} rows: ({b}, {s}, {c}) x{n} per forward "
+            f"on {card_line()}")
+        out[rows] = check_attention(Counter({(s, c): n}), device, rows=b,
+                                    heads=True)
+        out[rows]["rows"] = rows
+    return out
+
+
+def run_dit_serving(cfg: Config, weights: dict, device, k3_sites: int):
+    """Phase 18: ViewFusionService on a DiT run dir written by
+    write_run_dir answers DIT_REQUESTS requests x 6 views with DDIM 50,
+    in batches of 8; the K3 counter must rise by exactly its per-forward
+    sites per forward.  Returns the launches and the served images."""
+    tmp = tempfile.TemporaryDirectory(prefix="vf-dit-")
+    try:
+        write_run_dir(tmp.name, cfg, weights)
+        service = ViewFusionService(tmp.name, batch_size=BATCH,
+                                    max_views=MAX_VIEWS,
+                                    default_steps=DDIM_STEPS, device=device)
+    finally:
+        tmp.cleanup()
+    if not isinstance(service.model.unet, DiT):
+        raise AssertionError("the DiT run dir did not build a DiT")
+    t0 = time.perf_counter()
+    service.warmup([DDIM_STEPS], sampler="ddim")
+    say(f"DiT warmup (ddim {DDIM_STEPS} steps): "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = [np.random.default_rng(SEED + 30 + i) for i in range(DIT_REQUESTS)]
+    hw = service.image_size
+    results = [None] * DIT_REQUESTS
+
+    def call(i):
+        cond = rng[i].uniform(0, 1, (MAX_VIEWS, hw, hw, 3)).astype(
+            np.float32)
+        t0 = time.perf_counter()
+        img = service.submit(cond, angle=0.5 * i, steps=DDIM_STEPS,
+                             sampler="ddim")
+        results[i] = (img, time.perf_counter() - t0)
+
+    service.batch_log.clear()
+    torch.cuda.synchronize()
+    spatial_self_attention.launches = 0
+    service.model.unet_forwards = 0
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(DIT_REQUESTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = spatial_self_attention.launches
+    forwards = service.model.unet_forwards
+    if any(r is None for r in results):
+        raise AssertionError("a DiT request did not complete")
+    for img, _ in results:
+        if not (img.shape == (hw, hw, 3) and np.isfinite(img).all()
+                and img.min() >= 0.0 and img.max() <= 1.0):
+            raise AssertionError(f"bad DiT output {img.shape}")
+    if forwards == 0 or launches != k3_sites * forwards:
+        raise AssertionError(f"DiT serving: K3 launches {launches} != "
+                             f"{k3_sites} x {forwards} forwards")
+    lat = sorted(r[1] for r in results)
+    say(f"DiT served {DIT_REQUESTS} requests x {MAX_VIEWS} views, DDIM "
+        f"{DDIM_STEPS}, in {wall:.2f} s = {DIT_REQUESTS / wall:.2f} views/s, "
+        f"request latency p50 {lat[len(lat) // 2]:.2f} s max {lat[-1]:.2f}"
+        f" s on {card_line()}")
+    for steps, sampler, n, sec in service.batch_log:
+        say(f"  batch {sampler} {steps} steps, {n} requests: "
+            f"{sec * 1e3:.0f} ms ({sec * 1e3 / steps:.2f} ms per step, "
+            f"{n / sec:.2f} views/s)")
+    say(f"launches on the DiT serving path: K3 {launches} over {forwards} "
+        f"DiT forwards ({launches // forwards} per forward)")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    dit = service.model.unet
+    inputs = unet_inputs(ROWS, dit.config, device, seed=SEED + 31)
+    with torch.inference_mode():
+        dit(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dit(*inputs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            dit(*inputs)
+            torch.cuda.synchronize()
+    report_profile(prof, f"one DiT forward at {ROWS} rows", wall_ms)
+    images = [r[0] for r in results]
+    del service, dit
+    torch.cuda.empty_cache()
+    return launches, images
+
+
+def run_dit_trainer(weights: dict, device, k3_sites: int) -> dict:
+    """Phase 19: the Trainer on the DiT takes TRAIN_STEPS steps at batch
+    28 (R = 98) from the seeded weights, without and with tpu.remat; K3
+    must launch exactly its sites per forward, and again in the backward
+    under remat.  Returns the launches of both runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launches = {}
+    for remat in (False, True):
+        cfg = dit_config(remat=remat)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # what earlier phases hold
+        trainer = Trainer(cfg, device=device, state_dict=weights, seed=SEED)
+        rng = np.random.default_rng(SEED + 21)
+        batches = [train_batch(cfg, it, rng) for it in range(TRAIN_STEPS + 1)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        spatial_self_attention.launches = 0
+        trainer.model.unet_forwards = 0
+        losses, times = [], []
+        for it in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(batches[it]).item())
+            times.append((time.perf_counter() - t0) * 1e3)
+        n = spatial_self_attention.launches
+        steps = trainer.model.unet_forwards
+        want = k3_sites * steps * (2 if remat else 1)
+        if steps != TRAIN_STEPS or n != want:
+            raise AssertionError(f"DiT training (remat {remat}): K3 "
+                                 f"launches {n} != {want} over {steps} steps")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite DiT loss: {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        steady = sorted(times[1:])
+        median = steady[len(steady) // 2]
+        say(f"DiT Trainer, batch {TRAIN_BATCH} ({TRAIN_ROWS} rows) bf16, "
+            f"remat {remat}: losses "
+            + " ".join(f"{v:.5f}" for v in losses)
+            + f"; ms per step: first {times[0]:.1f}, then "
+            + " ".join(f"{t:.1f}" for t in times[1:])
+            + f" (median {median:.1f}); peak memory "
+            f"{(peak - base) / 2 ** 30:.2f} GiB above the "
+            f"{base / 2 ** 30:.2f} GiB earlier phases hold; K3 {n} launches "
+            f"over {steps} steps; on {card_line()}")
+        launches["dit_training_remat" if remat else "dit_training"] = n
+        if not remat:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                trainer.train_step(batches[TRAIN_STEPS]).item()
+            busy = report_profile(
+                prof, f"one DiT training step at {TRAIN_ROWS} rows",
+                (time.perf_counter() - t0) * 1e3)
+            say(f"DiT step: device busy {busy:.2f} ms against the "
+                f"unprofiled median {median:.1f} ms: {busy / median:.0%}")
+        del trainer
+        torch.cuda.empty_cache()
+    return launches
+
+
+def check_dit_train_against_cpu(device) -> None:
+    """Phase 19: two tiny f32 DiT train steps on the card against the
+    CPU, from perturbed weights (a fresh DiT is the zero map)."""
+    raw = parse_yaml(Path(DIT_CONFIG).read_text())
+    raw["model"]["denoise_net_params"] = TINY_DIT
+    raw["model"]["view_fusion_params"]["beta_schedule"]["train"][
+        "num_timesteps"] = 20
+    raw["data"]["params"].update(batch_size=4, max_views=3)
+    raw["tpu"].update(compute_dtype="float32", ema_decay=0.9, lr_warmup=1,
+                      peak_lr=1e-5)
+    cfg = Config.from_dict(raw)
+    train_against_cpu(device, cfg, dit_weights(cfg, sigma=0.1),
+                      "tiny f32 DiT train steps")
+
+
+def run_dit_ancestral(weights: dict, device, k3_sites: int) -> int:
+    """Phase 20: one DIT_CHAIN_STEPS-step segment of the T = 2000
+    ancestral chain on the DiT at 28 packed rows (the stratified view
+    counts of a batch of 8); K3 must launch exactly its sites per step.
+    Returns the launches."""
+    cfg = dit_config()
+    trainer = Trainer(cfg, device=device, state_dict=weights, seed=SEED)
+    model, put = trainer._infer_model, trainer._put
+    T = model.schedule.num_timesteps
+    n, hw = cfg.data.max_views, cfg.denoiser.image_size
+    rng = np.random.default_rng(SEED + 22)
+    counts, si, vi = global_packed_counts(cfg.train.seed, 0, ANCESTRAL_BATCH,
+                                          n)
+    batch = {"cond": rng.integers(0, 256, (len(counts), n, hw, hw, 3),
+                                  dtype=np.uint8),
+             "view_count": counts.astype(np.int32), "sample_idx": si,
+             "view_idx": vi,
+             "angle": rng.uniform(0, 2 * np.pi, len(counts)).astype(
+                 np.float32)}
+    gen, cond, vc, angle = trainer._gen_inputs(
+        batch["cond"], batch["view_count"], batch["angle"], 0)
+    idx = (put(si).long(), put(vi).long())
+    sample_num = cfg.train.sample_num
+    carry = model.init_chain(cond, vc, sample_num, capture_aux=False,
+                             generator=gen)
+    torch.cuda.synchronize()
+    spatial_self_attention.launches = 0
+    model.unet_forwards = 0
+    t0 = time.perf_counter()
+    carry = model.chain_segment(
+        carry, range(T - 1, T - 1 - DIT_CHAIN_STEPS, -1), cond, vc, angle,
+        sample_num, idx)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches, steps = spatial_self_attention.launches, model.unet_forwards
+    if steps != DIT_CHAIN_STEPS or launches != k3_sites * steps:
+        raise AssertionError(f"DiT ancestral: K3 launches {launches} over "
+                             f"{steps} steps != {k3_sites} per step")
+    if not torch.isfinite(carry.y_t).all():
+        raise AssertionError("non-finite DiT chain state")
+    say(f"DiT ancestral segment: {DIT_CHAIN_STEPS} of T={T} steps at "
+        f"{len(si)} packed rows (view counts {counts.tolist()}), bf16: "
+        f"{sec:.2f} s = {sec / steps * 1e3:.2f} ms per step on "
+        f"{card_line()}; K3 {launches} launches")
+    profile_chain(trainer, batch)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def random_lpips_weights(path: str) -> None:
+    """VGG16-shaped seeded random LPIPS weights in the converter's .npz
+    layout (HWIO convs, (1, 1, C, 1) non-negative heads)."""
+    rng = np.random.default_rng(SEED + 23)
+    out, cin, idx = {}, 3, 0
+    stages = [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]
+    for n_convs, ch in stages:
+        for _ in range(n_convs):
+            out[f"conv{idx}_w"] = (rng.standard_normal((3, 3, cin, ch))
+                                   * np.sqrt(2 / (9 * cin))).astype(
+                                       np.float32)
+            out[f"conv{idx}_b"] = (rng.standard_normal(ch) * 0.01).astype(
+                np.float32)
+            cin, idx = ch, idx + 1
+    for s, (_, ch) in enumerate(stages):
+        out[f"lin{s}_w"] = np.abs(rng.standard_normal((1, 1, ch, 1))).astype(
+            np.float32) / ch
+    np.savez(path, **out)
+
+
+def check_offline_tools(device, served: list) -> None:
+    """Phase 21: LPIPS with seeded random weights on LPIPS_PAIRS pairs at
+    64 px, card against CPU (within 1e-4 relative: f32 sums of 13 conv
+    layers in another order, TF32 off); then compute_metrics over a PNG
+    dump (the DiT's served images and seeded pairs) on the card against
+    the CPU: PSNR within 1e-6 relative, SSIM within 1e-6, LPIPS 1e-4
+    relative."""
+    tmp = tempfile.TemporaryDirectory(prefix="vf-offline-")
+    try:
+        w = os.path.join(tmp.name, "lpips_random.npz")
+        random_lpips_weights(w)
+        rng = np.random.default_rng(SEED + 24)
+        x = rng.uniform(-1, 1, (LPIPS_PAIRS, 64, 64, 3)).astype(np.float32)
+        y = np.clip(x + rng.normal(0, 0.2, x.shape), -1, 1).astype(
+            np.float32)
+        card_fn = load_lpips(w, device=device)
+        xd, yd = (torch.from_numpy(a).to(device) for a in (x, y))
+        got = card_fn(xd, yd).cpu()
+        want = load_lpips(w, device="cpu")(x, y)
+        rel = ((got - want).abs() / want.abs()).max().item()
+        ms = call_ms(lambda: card_fn(xd, yd), iters=5, warmup=1)
+        say(f"LPIPS (VGG16, random weights) on {LPIPS_PAIRS} pairs at 64 "
+            f"px, card vs CPU: max rel {rel:.3g}; {ms:.2f} ms per call on "
+            f"{card_line()}")
+        if not (got.shape == (LPIPS_PAIRS,) and rel <= 1e-4):
+            raise AssertionError(f"LPIPS on the card disagrees: {rel}")
+        gen, tgt = os.path.join(tmp.name, "gen"), os.path.join(tmp.name,
+                                                               "tgt")
+        os.makedirs(gen)
+        os.makedirs(tgt)
+        pairs = [(img, np.clip(img + rng.normal(0, 0.05, img.shape), 0, 1))
+                 for img in served]
+        pairs += [((a + 1) / 2, (b + 1) / 2) for a, b in zip(x, y)]
+        for i, (a, b) in enumerate(pairs):
+            for d, img in ((gen, a), (tgt, b)):
+                Path(d, f"{i:04d}.png").write_bytes(encode_png(
+                    np.round(np.clip(img, 0, 1) * 255).astype(np.uint8)))
+        t0 = time.perf_counter()
+        card = compute_metrics.main(["--generated", gen, "--target", tgt,
+                                     "--lpips-weights", w, "--batch-size",
+                                     "16"])
+        sec = time.perf_counter() - t0
+        cpu = compute_metrics.compute_folder_metrics(
+            gen, tgt, batch_size=16, lpips_weights=w, device="cpu")
+        errs = {"psnr": abs(card["psnr"] - cpu["psnr"]) / abs(cpu["psnr"]),
+                "ssim": abs(card["ssim"] - cpu["ssim"]),
+                "lpips": abs(card["lpips"] - cpu["lpips"]) / cpu["lpips"]}
+        say(f"compute_metrics over {card['count']} PNG pairs on the card in "
+            f"{sec:.2f} s: psnr {card['psnr']:.4f} ssim {card['ssim']:.4f} "
+            f"lpips {card['lpips']:.5f}; against the CPU: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+        if not (card["count"] == len(pairs) and errs["psnr"] <= 1e-6
+                and errs["ssim"] <= 1e-6 and errs["lpips"] <= 1e-4):
+            raise AssertionError(f"compute_metrics on the card disagrees "
+                                 f"with the CPU: {errs}")
+    finally:
+        tmp.cleanup()
+
+
+DIT_EXP_OBJECTS = 32      # per split: 4 shards of 8 at 64 px
+DIT_EXP_MAX_IT = 10
+
+
+def run_dit_experiment(k3_sites: int) -> int:
+    """Phase 22: the experiment loop on the DiT through ``cli.main``:
+    -t at configs/dit-small-tpu-4.yaml (batch 28) for DIT_EXP_MAX_IT
+    steps with an eval and a vis grid at the last, then -e on its run
+    dir, on synthetic 64 px shards; K3 must launch exactly its sites per
+    DiT forward over the phase, and model.msgpack must hold the DiT's
+    tree.  Returns the launches."""
+    cwd = os.getcwd()
+    tmp = tempfile.TemporaryDirectory(prefix="vf-phase22-")
+    try:
+        data = os.path.join(tmp.name, "data")
+        for mode, seed in (("train", 3), ("test", 4)):
+            make_synthetic_shards(data, mode, num_objects=DIT_EXP_OBJECTS,
+                                  num_shards=4, image_size=64, seed=seed,
+                                  family="shaded")
+        cfg_path = experiment_config(
+            data, DIT_CONFIG, 22, model__max_it=DIT_EXP_MAX_IT,
+            model__validate_from=DIT_EXP_MAX_IT,
+            model__validate_every=DIT_EXP_MAX_IT,
+            data__params__batch_size=TRAIN_BATCH,
+            data__params__test__params__size=TRAIN_BATCH,
+            tpu__profile_steps=0)
+        cfg_path = os.path.abspath(cfg_path)
+        want_keys = set(DiT(dit_config().denoiser).state_dict())
+        spatial_self_attention.launches = 0
+        forwards = 0
+
+        def drive(argv) -> str:
+            nonlocal forwards
+            exp = cli.main(argv)
+            tr = exp.trainer
+            if not isinstance(tr.model.unet, DiT):
+                raise AssertionError("the CLI did not build a DiT")
+            forwards += tr.model.unet_forwards + (
+                tr.ema_model.unet_forwards if tr.ema_model else 0)
+            return os.path.abspath(exp.out_dir)
+
+        os.chdir(tmp.name)
+        t0 = time.perf_counter()
+        run = drive(["-c", cfg_path, "-t"])
+        drive(["-s", run, "-e"])
+        sec = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = spatial_self_attention.launches
+        records = [json.loads(line) for line in open(
+            os.path.join(run, "metrics.jsonl"))]
+        losses = {r["it"]: r["loss"] for r in records if "loss" in r}
+        evals = [(r["it"], r["ssim"], r["psnr"]) for r in records
+                 if "ssim" in r]
+        missing = [n for n in ("model.msgpack", "best_model_all.msgpack",
+                               f"output-{DIT_EXP_MAX_IT}.png")
+                   if not os.path.exists(os.path.join(run, n))]
+        state, _ = Checkpoint(run).load("model.msgpack",
+                                        dict.fromkeys(EXP_FIELDS))
+        keys = set(unet_state_dict_from_jax(state["params"]))
+        if (missing or sorted(losses) != [0, 5, 10] or len(evals) != 2
+                or not all(np.isfinite(v) for v in losses.values())
+                or keys != want_keys or launches != k3_sites * forwards):
+            raise AssertionError(
+                f"DiT experiment: missing {missing}, losses {losses}, evals "
+                f"{evals}, DiT tree {keys == want_keys}, K3 {launches} for "
+                f"{forwards} forwards")
+        say(f"DiT -t ({DIT_EXP_MAX_IT + 1} steps, an eval and an ancestral "
+            f"vis grid) and -e through cli.main in {sec:.1f} s; losses "
+            + " ".join(f"{k}:{v:.5f}" for k, v in sorted(losses.items()))
+            + "; evals " + ", ".join(f"it {i}: ssim {a:.4f} psnr {b:.2f}"
+                                     for i, a, b in evals)
+            + f"; model.msgpack holds the DiT's {len(keys)} tensors; K3 "
+            f"{launches} launches over {forwards} DiT forwards on "
+            f"{card_line()}")
+        return launches
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+
+
+@contextlib.contextmanager
+def dit_k3_shapes(shapes: dict, path: str):
+    """Record the (B, S, C) and dtype of every K3 call that the DiT makes
+    on the card while the block runs, under ``path``; the wrapper's own
+    counter still counts each launch."""
+    real = dit_module.spatial_self_attention
+
+    def recording(q, k, v, scale):
+        if q.is_cuda:
+            shapes.setdefault((tuple(q.shape), q.dtype), set()).add(path)
+        return real(q, k, v, scale)
+
+    dit_module.spatial_self_attention = recording
+    try:
+        yield
+    finally:
+        dit_module.spatial_self_attention = real
+
+
+def run_dit_phases(device) -> dict:
+    """Phases 17-22 at configs/dit-small-tpu-4.yaml's widths, then K3
+    against its plain version at every shape those paths gave it.
+    Returns K3's per-forward totals at the DiT sites (``sites``), the
+    launches by path, K3's largest error over the phases and the calls
+    per DiT forward."""
+    dcfg = dit_config()
+    say(f"DiT: {DIT_CONFIG} read by the port's reader (hidden "
+        f"{dcfg.denoiser.hidden_size}, depth {dcfg.denoiser.depth}, "
+        f"{dcfg.denoiser.num_heads} heads, patch {dcfg.denoiser.patch_size},"
+        f" {dcfg.denoiser.image_size} px, {dcfg.train.compute_dtype}); cut: "
+        f"batch 112 on 4 chips -> {TRAIN_BATCH} on one card (R = "
+        f"{TRAIN_ROWS}), the ancestral chain -> one {DIT_CHAIN_STEPS}-step "
+        f"segment of T = 2000; seeded weights, zero-init layers perturbed")
+    calls = sum(dit_sites(dcfg, 1).values())
+    sites = check_attention_dit(dcfg, device)                    # 17
+    err = max(t["max_abs_err"] for t in sites.values())
+    weights = dit_weights(dcfg)
+    launches, shapes = {}, {}
+    with dit_k3_shapes(shapes, "dit_serving"):                   # 18
+        launches["dit_serving"], served = run_dit_serving(
+            dcfg, weights, device, calls)
+    with dit_k3_shapes(shapes, "dit_training"):                  # 19
+        launches.update(run_dit_trainer(weights, device, calls))
+    check_dit_train_against_cpu(device)
+    torch.cuda.empty_cache()
+    with dit_k3_shapes(shapes, "dit_ancestral"):                 # 20
+        launches["dit_ancestral"] = run_dit_ancestral(weights, device,
+                                                      calls)
+    check_offline_tools(device, served)                          # 21
+    torch.cuda.empty_cache()
+    with dit_k3_shapes(shapes, "dit_experiment"):                # 22
+        launches["dit_experiment"] = run_dit_experiment(calls)
+    for ((b, s, c), dtype), paths in sorted(shapes.items(), key=str):
+        say(f"K3 at ({b}, {s}, {c}) {str(dtype)[6:]}, given by "
+            f"{', '.join(sorted(paths))}:")
+        err = max(err, check_attention(Counter({(s, c): 0}), device, rows=b,
+                                       timed=False, heads=True)[
+                                           "max_abs_err"])
+    return {"sites": sites, "launches": launches, "max_abs_err": err,
+            "calls": calls, "config": dcfg}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
@@ -1506,6 +2062,11 @@ def main() -> int:
 
     # 16. the experiment loop through the CLI: the fourth main path
     exp_launches = run_experiment(k1_calls, k3_calls, trainer_ms)
+    torch.cuda.empty_cache()
+
+    # 17-22. the DiT family at configs/dit-small-tpu-4.yaml's widths
+    dit = run_dit_phases(device)
+    k3["max_abs_err"] = max(k3["max_abs_err"], dit["max_abs_err"])
 
     kernels = []
     for name, route_src, replaces, tot, key, per in (
@@ -1525,6 +2086,8 @@ def main() -> int:
         if key in anc_launches:
             by_path["ancestral"] = anc_launches[key]
         by_path["experiment"] = exp_launches[key]
+        if key == "k3":
+            by_path.update(dit["launches"])
         kernels.append({
             "name": name, "route": "cuda", "source": route_src,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -1540,6 +2103,13 @@ def main() -> int:
                f"{k1_anc['rows']} packed rows",
         **{k: k1_anc[k] for k in ("ms", "plain_ms", "library_ms",
                                   "bound_ms")}}
+    for name, rows in (("dit_forward", ROWS),
+                       ("dit_train_forward", TRAIN_ROWS)):
+        kernels[2][name] = {
+            "per": f"one DiT forward at {rows} rows ({dit['calls']} calls on "
+                   f"{next(iter(dit_sites(dit['config'], rows)))})",
+            **{k: dit["sites"][rows][k] for k in ("ms", "plain_ms",
+                                                  "library_ms", "bound_ms")}}
     kernels.append({
         "name": "conv3x3_wgrad", "route": "cuda",
         "source": "viewfusion_tpu_torch/csrc/conv_wgrad.cu",

@@ -17,7 +17,9 @@ against the CPU; the conv weight-gradient tests cover kernel K4 (ragged
 channels, 5 x 7 images, bf16 and f32) and the ``conv3x3`` op.  The
 experiment loop runs ``cli.main -t`` on the card at TINY size and reads
 its run dir back on the CPU; the native shard reader is held against
-the PNG codec (no card needed).
+the PNG codec (no card needed).  K3 runs at the DiT's sites (the serving
+and training rows of dit-small-tpu-4, three q/k/v layouts), and a tiny
+DiT's train steps on the card are held against the CPU.
 """
 
 import json
@@ -151,6 +153,33 @@ def test_attention_kernel_matches_plain(device, shape, dtype, strided):
     assert spatial_self_attention.launches == before + 1
     ref = spatial_self_attention_reference(q, k, v, scale)
     assert out.dtype == torch.float32 and out.shape == (b, s, c)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "columns", "planes"])
+@pytest.mark.parametrize("shape", [(288, 256, 64), (588, 256, 64)])
+def test_attention_kernel_at_the_dit_sites(device, shape, layout):
+    """dit-small-tpu-4's sites, bf16: (48 x 6 heads, 256 tokens, 64) when
+    serving and (98 x 6, 256, 64) when training, with q, k and v as
+    separate tensors, column slices of one (B, S, 3C) buffer, or the
+    planes of one (3, B, S, C) copy (what MHAttention hands over);
+    within 1e-4 of the plain version."""
+    b, s, c = shape
+    gen = torch.Generator(device=device).manual_seed(2)
+    if layout == "planes":
+        q, k, v = torch.randn((3, b, s, c), generator=gen,
+                              device=device).bfloat16()
+    else:
+        qkv = torch.randn((b, s, 3 * c), generator=gen,
+                          device=device).bfloat16()
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+        if layout == "contiguous":
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    before = spatial_self_attention.launches
+    out = spatial_self_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert spatial_self_attention.launches == before + 1
+    ref = spatial_self_attention_reference(q, k, v, 0.125)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
 
 
@@ -303,6 +332,55 @@ def test_unet_backward_on_the_card_matches_the_cpu(device):
     gmax = max(g.abs().max().item() for g in grads[0].values())
     for k, g in grads[0].items():
         assert (grads[1][k] - g).abs().max().item() <= 1e-4 * gmax, k
+
+
+def test_dit_train_step_on_the_card_matches_the_cpu(device):
+    """A tiny f32 DiT (perturbed: a fresh one is the zero map), two packed
+    Trainer steps: losses, parameters and every gradient on the card
+    (K3 per head) within 1e-4 of the same steps on the CPU."""
+    import copy
+
+    from viewfusion_tpu_torch.config import Config
+    from viewfusion_tpu_torch.models.view_fusion import ViewFusion
+    from viewfusion_tpu_torch.training.trainer import (Trainer,
+                                                       global_packed_counts)
+
+    raw = copy.deepcopy(TINY_RAW)
+    raw["model"]["denoise_net"] = "dit"
+    raw["model"]["denoise_net_params"] = {
+        "image_size": 8, "in_channel": 6, "out_channel": 6,
+        "patch_size": 2, "hidden_size": 32, "depth": 2, "num_heads": 2}
+    raw["tpu"].update(packed_views=True, lr_warmup=1, peak_lr=1e-5)
+    cfg = Config.from_dict(raw)
+    torch.manual_seed(0)
+    gen = torch.Generator().manual_seed(1)
+    state = {k: v + 0.1 * torch.randn(v.shape, generator=gen) for k, v in
+             ViewFusion.from_config(cfg).unet.state_dict().items()}
+    rng = np.random.default_rng(2)
+    batches = []
+    for it in range(2):
+        counts, si, vi = global_packed_counts(0, it, 4, 3)
+        batches.append((dict(
+            target=rng.integers(0, 256, (4, 8, 8, 3), np.uint8),
+            cond=rng.integers(0, 256, (4, 3, 8, 8, 3), np.uint8),
+            angle=rng.uniform(0, 6, 4).astype(np.float32),
+            view_count=counts.astype(np.int32), sample_idx=si,
+            view_idx=vi), rng.normal(size=(4, 8, 8, 3)).astype(np.float32),
+            rng.uniform(0.05, 0.95, 4).astype(np.float32)))
+    runs = []
+    for dev in ("cpu", device):
+        tr = Trainer(cfg, device=dev, state_dict=state)
+        losses = [tr.train_step(b, noise=n, sample_gammas=g).item()
+                  for b, n, g in batches]
+        runs.append((losses, [p.detach().cpu() for p in tr.params],
+                     [p.grad.cpu() for p in tr.params]))
+    (l_c, p_c, g_c), (l_d, p_d, g_d) = runs
+    assert max(abs(a - b) / abs(a) for a, b in zip(l_c, l_d)) <= 1e-4
+    gmax = max(g.abs().max().item() for g in g_c)
+    for a, b in zip(p_c, p_d):
+        assert (a - b).abs().max().item() <= 1e-4
+    for a, b in zip(g_c, g_d):
+        assert (a - b).abs().max().item() <= 1e-4 * gmax
 
 
 # (B, H, W, Cin, Cout): ragged channels (6, 3, 5), odd images (5 x 7),

@@ -89,6 +89,41 @@ def test_attention_plan_at_the_paper_sites(paper_sites):
                       (98, 64, 320): 196, (28, 64, 320): 56}
 
 
+def test_attention_plan_at_the_dit_sites(monkeypatch):
+    """dit-small-tpu-4 (hidden 384, 6 heads of 64, 256 tokens): K3 runs
+    once per block on (rows * 6, 256, 64), one channel part, so each
+    block owns one head's 64 queries: 288 rows serving 48, 588 training
+    R = 98, 168 on the 28-row chain."""
+    import os
+
+    from viewfusion_tpu_torch.config import load_config
+    from viewfusion_tpu_torch.models import dit as dit_module
+    from viewfusion_tpu_torch.models.view_fusion import ViewFusion
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, "configs", "dit-small-tpu-4.yaml"))
+    torch.manual_seed(0)
+    dit = ViewFusion.from_config(cfg, dtype=torch.float32).unet.eval()
+    sites = Counter()
+    attend = dit_module.spatial_self_attention
+
+    def record(q, k, v, scale):
+        sites.update([tuple(q.shape)])
+        assert q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
+        assert scale == 1 / 8
+        return attend(q, k, v, scale)
+
+    monkeypatch.setattr(dit_module, "spatial_self_attention", record)
+    with torch.inference_mode():
+        dit(torch.zeros((1, 64, 64, 6)), torch.zeros(1), torch.zeros(1))
+    assert sites == Counter({(6, 256, 64): 12})
+    for rows, blocks in ((48, 1152), (98, 2352), (28, 672)):
+        plan = attention_plan(rows * 6, 256, 64)
+        assert plan == {"q_tiles": 4, "parts": 1, "part_width": 64,
+                        "blocks": blocks}
+        assert (_attention_coverage(2, 256, 64, plan) == 1).all()
+
+
 @pytest.mark.parametrize("shape", [(2, 70, 192), (2, 33, 40), (1, 5, 8),
                                    (3, 64, 320), (1, 256, 192),
                                    (2, 129, 128), (4, 100, 256)])

@@ -273,8 +273,14 @@ def test_port_sources_import_nothing_of_jax():
 
 def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path):
     """A fresh interpreter where importing jax, flax, optax,
-    viewfusion_tpu, yaml, PIL or msgpack fails imports every port module,
-    runs a tiny CPU generate_ddim, and writes and serves a run dir."""
+    viewfusion_tpu, yaml, PIL or msgpack fails imports every port module
+    (the DiT, LPIPS, compute_metrics and prep among them), runs a tiny
+    CPU generate_ddim, and writes and serves a UNet and a DiT run dir."""
+    dit_raw = copy.deepcopy(TINY_CONFIG)
+    dit_raw["model"]["denoise_net"] = "dit"
+    dit_raw["model"]["denoise_net_params"] = dict(
+        image_size=8, in_channel=6, out_channel=6, patch_size=2,
+        hidden_size=32, depth=2, num_heads=2)
     script = """
 import pathlib, sys
 for name in ("jax", "flax", "optax", "viewfusion_tpu", "yaml", "PIL",
@@ -287,7 +293,11 @@ root = pathlib.Path(viewfusion_tpu_torch.__file__).parent
 for path in sorted(root.rglob("*.py")):
     importlib.import_module(".".join(
         path.relative_to(root.parent).with_suffix("").parts))
+for name in ("models.dit", "ops.lpips", "utils.compute_metrics",
+             "data.prep"):
+    assert "viewfusion_tpu_torch." + name in sys.modules, name
 from viewfusion_tpu_torch.config import Config
+from viewfusion_tpu_torch.models.dit import DiT
 from viewfusion_tpu_torch.models.view_fusion import ViewFusion
 from viewfusion_tpu_torch.serving import ViewFusionService, write_run_dir
 cfg = Config.from_dict(%r)
@@ -301,8 +311,16 @@ write_run_dir(%r, cfg, model.unet.state_dict())
 svc = ViewFusionService(%r, batch_size=2, device="cpu")
 img = svc.submit(torch.rand(1, 8, 8, 3).numpy(), 0.5, steps=2)
 assert img.shape == (8, 8, 3)
+dcfg = Config.from_dict(%r)
+dit = ViewFusion.from_config(dcfg).unet
+assert isinstance(dit, DiT)
+write_run_dir(%r, dcfg, dit.state_dict())
+dsvc = ViewFusionService(%r, batch_size=2, device="cpu")
+img = dsvc.submit(torch.rand(2, 8, 8, 3).numpy(), 0.5, steps=2)
+assert img.shape == (8, 8, 3) and isinstance(dsvc.model.unet, DiT)
 print("ok")
-""" % (TINY_CONFIG, str(tmp_path), str(tmp_path))
+""" % (TINY_CONFIG, str(tmp_path), str(tmp_path), dit_raw,
+       str(tmp_path / "dit"), str(tmp_path / "dit"))
     proc = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -57,7 +57,7 @@ from viewfusion_tpu.training import trainer as jax_trainer
 from viewfusion_tpu.training.schedulers import lr_schedule as jax_lr_schedule
 from viewfusion_tpu.utils.torch_convert import convert_unet_state_dict
 from viewfusion_tpu_torch.config import Config
-from viewfusion_tpu_torch.models.unet import UNet
+from viewfusion_tpu_torch.models.unet import ResnetBlocWithAttn, UNet
 from viewfusion_tpu_torch.models.view_fusion import ViewFusion
 from viewfusion_tpu_torch.ops.attention import spatial_self_attention
 from viewfusion_tpu_torch.ops.groupnorm import (
@@ -546,15 +546,38 @@ def test_fresh_init_follows_flax(jax_setup):
     assert abs(pooled[0].std() - 1.0) <= 0.03
 
 
-@pytest.mark.parametrize("what", ["dropout", "remat"])
-def test_dropout_and_remat_are_refused(what):
+def test_dropout_is_refused():
     raw = copy.deepcopy(TINY_CONFIG)
-    if what == "dropout":
-        raw["model"]["denoise_net_params"]["dropout"] = 0.1
-    else:
-        raw["tpu"]["remat"] = True
+    raw["model"]["denoise_net_params"]["dropout"] = 0.1
     cfg = Config.from_dict(raw)
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(NotImplementedError, match="dropout"):
         ViewFusion.from_config(cfg)
     with pytest.raises(NotImplementedError):
         Trainer(cfg, device="cpu")
+
+
+def test_remat_builds_and_recomputes(monkeypatch):
+    """tpu.remat builds a UNet and a Trainer whose UNet recomputes each
+    block in the backward: the blocks' forwards run twice per step
+    (tests/test_torch_port_dit.py holds remat's gradients).  The forwards
+    are counted on the class: module hooks do not fire in the
+    recomputation."""
+    raw = copy.deepcopy(TINY_CONFIG)
+    raw["tpu"]["remat"] = True
+    cfg = Config.from_dict(raw)
+    assert ViewFusion.from_config(cfg).unet.remat
+    unet = Trainer(cfg, device="cpu").model.unet
+    assert unet.remat
+    blocks = sum(isinstance(m, ResnetBlocWithAttn) for m in unet.modules())
+    calls = []
+    forward = ResnetBlocWithAttn.forward
+    monkeypatch.setattr(ResnetBlocWithAttn, "forward",
+                        lambda self, *a: calls.append(1) or forward(self, *a))
+    rng = np.random.default_rng(0)
+    hw, cin = unet.config.image_size, unet.config.in_channel
+    x = torch.from_numpy(rng.normal(size=(2, hw, hw, cin)).astype(
+        np.float32))
+    out = unet(x, torch.ones(2), torch.full((2,), 0.5))
+    assert blocks and len(calls) == blocks
+    out.square().mean().backward()
+    assert len(calls) == 2 * blocks

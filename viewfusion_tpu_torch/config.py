@@ -87,7 +87,7 @@ class UNetConfig:
 
 @dataclass(frozen=True)
 class DiTConfig:
-    """DiT denoiser hyper-params (not yet served by the port)."""
+    """DiT denoiser hyper-params (``models/dit.py``)."""
 
     image_size: int = 64
     in_channel: int = 6
@@ -273,26 +273,29 @@ def _field_names(cls) -> List[str]:
 # Nested block mappings and ``- item`` sequences (indented or not), the
 # empty ``{}`` and ``[]`` that yaml.dump writes, comments, and scalars
 # resolved as PyYAML's safe loader resolves them (YAML 1.1): null, bools
-# (true/yes/on ...), decimal ints, floats such as ``5.0e-05`` or ``.inf``,
-# and plain, single- or double-quoted strings.  Anything else (flow
-# collections, anchors and aliases, tags, block and multi-line scalars,
-# directives and documents, complex keys, octal, hex and sexagesimal ints,
-# timestamps) raises a ``ValueError`` that names the construct.
+# (true/yes/on ...), decimal and octal ints (``0`` then digits 0-7: an
+# unquoted NMR category id such as ``03001627`` is the int 787351, as
+# PyYAML reads it), floats such as ``5.0e-05`` or ``.inf``, and plain,
+# single- or double-quoted strings.  Anything else (flow collections,
+# anchors and aliases, tags, block and multi-line scalars, directives and
+# documents, complex keys, binary, hex and sexagesimal ints, timestamps)
+# raises a ``ValueError`` that names the construct.
 
 _Y_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
 _Y_BOOL = {v: b for b, vs in ((True, "yes Yes YES true True TRUE on On ON"),
                               (False, "no No NO false False FALSE off Off "
                                       "OFF")) for v in vs.split()}
 _Y_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_Y_OCTAL = re.compile(r"^[-+]?0[0-7_]+$")
 _Y_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
                       r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
                       r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
 # what PyYAML would resolve to a type this codec does not take
 _Y_OTHER = (
-    ("an octal, binary or hex int",
-     re.compile(r"^[-+]?(?:0b[0-1_]+|0[0-7_]+|0x[0-9a-fA-F_]+)$")),
     ("a sexagesimal number",
      re.compile(r"^[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?$")),
+    ("a binary or hex int",
+     re.compile(r"^[-+]?(?:0b[0-1_]+|0x[0-9a-fA-F_]+)$")),
     ("a timestamp", re.compile(r"^[0-9][0-9][0-9][0-9]-[0-9][0-9]?-")),
     ("a merge key", re.compile(r"^<<$")),
     ("a value key", re.compile(r"^=$")),
@@ -311,6 +314,8 @@ def _resolve_plain(text: str, lineno: int, line: str):
         return _Y_BOOL[text]
     if _Y_INT.match(text):
         return int(text.replace("_", ""))
+    if _Y_OCTAL.match(text):  # PyYAML's construct_yaml_int
+        return int(text.replace("_", ""), 8)
     if _Y_FLOAT.match(text):
         v = text.replace("_", "").lower()
         sign = -1.0 if v.startswith("-") else 1.0

@@ -1,1 +1,2 @@
-"""Data pipeline of the port: tar and raw shards, decode, batching."""
+"""Data pipeline of the port: the NMR sharder, tar and raw shards,
+decode, batching."""

@@ -1,1 +1,2 @@
-"""Models of the port: the denoising UNet and the ViewFusion wrapper."""
+"""Models of the port: the denoisers (UNet, DiT) and the ViewFusion
+wrapper."""

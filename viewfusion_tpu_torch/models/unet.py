@@ -24,8 +24,10 @@ UNet output is f32.
 
 A fresh UNet is initialised as flax initialises the JAX one: lecun-normal
 (truncated) conv and dense kernels, zero biases, GroupNorm scale one and
-bias zero.  Dropout and rematerialisation are not ported: a config that
-asks for either raises ``NotImplementedError``.
+bias zero.  ``remat=True`` recomputes each ``ResnetBlocWithAttn`` in the
+backward (``torch.utils.checkpoint``), as ``nn.remat`` does per block in
+JAX.  Dropout is not ported: a config that asks for it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from viewfusion_tpu_torch.config import UNetConfig
 from viewfusion_tpu_torch.ops.attention import spatial_self_attention
@@ -233,11 +236,8 @@ class UNet(nn.Module):
         if config.dropout > 0:
             raise NotImplementedError(
                 f"UNet dropout {config.dropout} is not ported yet")
-        if remat:
-            raise NotImplementedError(
-                "UNet rematerialisation (tpu.remat) is not ported yet")
         cfg = self.config = config
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         inner = cfg.inner_channel
         groups = cfg.norm_groups
         if cfg.with_noise_level_emb:
@@ -296,20 +296,25 @@ class UNet(nn.Module):
             t = torch.zeros((x.shape[0], inner), dtype=self.dtype,
                             device=x.device)
 
+        def block(layer, h):
+            if self.remat and torch.is_grad_enabled():
+                return checkpoint(layer, h, t, use_reentrant=False)
+            return layer(h, t)
+
         h = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW, channels_last
         h = h.contiguous(memory_format=torch.channels_last)
         feats = []
         for layer in self.downs:
-            h = layer(h, t) if isinstance(layer, ResnetBlocWithAttn) else \
-                layer(h)
+            h = block(layer, h) if isinstance(layer, ResnetBlocWithAttn) \
+                else layer(h)
             feats.append(h)
         for layer in self.mid:
-            h = layer(h, t)
+            h = block(layer, h)
         for layer in self.ups:
             if isinstance(layer, ResnetBlocWithAttn):
                 h = torch.cat([h, feats.pop()], dim=1)
                 h = h.contiguous(memory_format=torch.channels_last)
-                h = layer(h, t)
+                h = block(layer, h)
             else:
                 h = layer(h)
         out = self.final_conv(h)

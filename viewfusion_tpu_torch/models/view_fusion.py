@@ -2,9 +2,10 @@
 reverse samplers of the port (counterpart of
 ``viewfusion_tpu/models/view_fusion.py``).
 
-One shared UNet predicts the noise of every (conditioning view, noisy
-target) pair; a per-pixel softmax over the views (masked to each
-sample's ``view_count``) composes the predictions.  The dense layout pads
+One shared denoiser (the UNet or the DiT) predicts the noise of every
+(conditioning view, noisy target) pair; a per-pixel softmax over the
+views (masked to each sample's ``view_count``) composes the
+predictions.  The dense layout pads
 every sample to ``n_max`` views, as the JAX dense ``_denoise_views``; the
 packed layout (``loss_packed``) runs the UNet on exactly the valid
 (sample, view) rows and scatters its outputs back to the dense layout.
@@ -31,12 +32,13 @@ view_count (B,), angle (B,).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from viewfusion_tpu_torch.config import Config
+from viewfusion_tpu_torch.models.dit import DiT
 from viewfusion_tpu_torch.models.unet import UNet
 from viewfusion_tpu_torch.ops.schedules import DiffusionSchedule
 
@@ -120,11 +122,13 @@ def _lam(g):
 
 
 class ViewFusion:
-    """The UNet, the active schedule and the composition flags.
+    """The denoiser, the active schedule and the composition flags.
 
-    ``unet_forwards`` counts UNet calls (one per sampler step)."""
+    ``unet`` holds the denoiser, a :class:`UNet` or a :class:`DiT` (same
+    call contract); ``unet_forwards`` counts its calls (one per sampler
+    step)."""
 
-    def __init__(self, unet: UNet, schedule: DiffusionSchedule,
+    def __init__(self, unet: Union[UNet, DiT], schedule: DiffusionSchedule,
                  weighting_train: bool = True,
                  weighting_inference: bool = True):
         self.unet = unet
@@ -137,16 +141,19 @@ class ViewFusion:
     @classmethod
     def from_config(cls, cfg: Config,
                     dtype: Optional[torch.dtype] = None) -> "ViewFusion":
-        if cfg.denoise_net != "unet":
-            raise NotImplementedError(
-                f"denoise_net {cfg.denoise_net!r} is not ported yet")
         if dtype is None:
             dtype = getattr(torch, cfg.train.compute_dtype)
+        # the denoiser registry (JAX ViewFusion.from_config)
+        if cfg.denoise_net == "unet":
+            denoiser = UNet(cfg.denoiser, dtype=dtype, remat=cfg.train.remat)
+        elif cfg.denoise_net == "dit":
+            denoiser = DiT(cfg.denoiser, dtype=dtype, remat=cfg.train.remat)
+        else:
+            raise ValueError("Provided denoising function is not supported!")
         # the *train* schedule is active for inference too
         sched = DiffusionSchedule.create(
             cfg.diffusion.phases[cfg.diffusion.active_phase])
-        return cls(UNet(cfg.denoiser, dtype=dtype, remat=cfg.train.remat),
-                   sched,
+        return cls(denoiser, sched,
                    weighting_train=cfg.diffusion.weighting_train,
                    weighting_inference=cfg.diffusion.weighting_inference)
 

@@ -1,7 +1,13 @@
-"""The port's UNet and training state <-> the JAX package's trees.
+"""The port's denoisers and training state <-> the JAX package's trees.
 
-The UNet map (the port keeps its own copy of the name map of
-``viewfusion_tpu/utils/torch_convert.py``):
+Two name maps, one per denoiser family, chosen by the tree's shape in
+one place (:func:`_map_entries`): the UNet's (the port keeps its own copy
+of the name map of ``viewfusion_tpu/utils/torch_convert.py``) and the
+DiT's (``Dense_0``/``Dense_1`` <-> ``cond_mlp.0``/``cond_mlp.2``,
+``patchify``, ``block_i/{adaLN, _MHAttention_0/{qkv, proj}, Dense_0,
+Dense_1}`` <-> ``blocks.i.{adaLN, attn.qkv, attn.proj, fc1, fc2}``,
+``final_adaLN``, ``unpatchify``; its LayerNorms hold no parameters).
+Leaves map as:
 
   * conv kernel (kh, kw, I, O) <-> weight (O, I, kh, kw)
   * Dense kernel (I, O)        <-> Linear weight (O, I)
@@ -10,7 +16,7 @@ The UNet map (the port keeps its own copy of the name map of
 and the training state, in the layout of the JAX ``TrainState``'s state
 dict (what a JAX checkpoint file holds):
 
-  * ``params``     <-> the UNet's parameters (``{"params": {...}}``);
+  * ``params``     <-> the denoiser's parameters (``{"params": {...}}``);
   * ``opt_state``  <-> ``torch.optim.Adam``'s state: optax's
     ``{"0": {"count", "mu", "nu"}, "1": {"count"}}`` with ``mu``/``nu``
     the ``exp_avg``/``exp_avg_sq`` trees and both counts the updates made;
@@ -93,6 +99,44 @@ def _entries(num_mults: int, res_blocks: int) -> List[_Entry]:
     return out
 
 
+def _dit_entries(depth: int) -> List[_Entry]:
+    out: List[_Entry] = [
+        ("cond_mlp.0", ("Dense_0",), "linear", False),
+        ("cond_mlp.2", ("Dense_1",), "linear", False),
+        ("patchify", ("patchify",), "conv", False),
+    ]
+    for i in range(depth):
+        src = f"block_{i}"
+        attn = (src, "_MHAttention_0")
+        out += [(f"blocks.{i}.adaLN", (src, "adaLN"), "linear", False),
+                (f"blocks.{i}.attn.qkv", attn + ("qkv",), "linear", False),
+                (f"blocks.{i}.attn.proj", attn + ("proj",), "linear", False),
+                (f"blocks.{i}.fc1", (src, "Dense_0"), "linear", False),
+                (f"blocks.{i}.fc2", (src, "Dense_1"), "linear", False)]
+    out += [("final_adaLN", ("final_adaLN",), "linear", False),
+            ("unpatchify", ("unpatchify",), "linear", False)]
+    return out
+
+
+def _map_entries(keys, jax_side: bool) -> List[_Entry]:
+    """The name map for a tree: ``keys`` are the top-level names of a JAX
+    params tree (``jax_side``) or the port's ``state_dict`` names.  A tree
+    with a ``patchify`` layer is a DiT's, else a UNet's."""
+    keys = list(keys)
+    if jax_side:
+        is_dit = "patchify" in keys
+        blocks = {int(m.group(1)) for m in
+                  (re.fullmatch(r"block_(\d+)", k) for k in keys) if m}
+    else:
+        is_dit = any(k.startswith("patchify.") for k in keys)
+        blocks = {int(m.group(1)) for m in
+                  (re.match(r"blocks\.(\d+)\.", k) for k in keys) if m}
+    if is_dit:
+        return _dit_entries(max(blocks) + 1 if blocks else 0)
+    return _entries(*(_jax_structure(keys) if jax_side
+                      else _torch_structure(keys)))
+
+
 def _get(tree, path):
     for k in path:
         if not isinstance(tree, dict) or k not in tree:
@@ -101,11 +145,12 @@ def _get(tree, path):
     return tree
 
 
-def _jax_structure(p: Dict[str, Any]) -> Tuple[int, int]:
+def _jax_structure(p) -> Tuple[int, int]:
     downs = sorted({tuple(map(int, m.groups())) for m in
                     (re.fullmatch(r"down_(\d+)_(\d+)", k) for k in p) if m})
     if not downs:
-        raise ValueError("not a UNet params tree (no down_<i>_<j> blocks)")
+        raise ValueError("not a UNet or DiT params tree (no down_<i>_<j> "
+                         "blocks, no patchify)")
     return max(i for i, _ in downs) + 1, max(j for _, j in downs) + 1
 
 
@@ -115,7 +160,8 @@ def _torch_structure(names) -> Tuple[int, int]:
     samples = {int(m.group(1)) for m in
                (re.match(r"downs\.(\d+)\.conv\.", k) for k in names) if m}
     if not downs:
-        raise ValueError("not a UNet state_dict (no downs.<i> modules)")
+        raise ValueError("not a UNet or DiT state_dict (no downs.<i> "
+                         "modules, no patchify)")
     num_mults = len(samples) + 1
     # downs = the stem, num_mults * res_blocks blocks, num_mults - 1 convs
     return num_mults, (len(downs) - num_mults) // num_mults
@@ -124,7 +170,7 @@ def _torch_structure(names) -> Tuple[int, int]:
 def _jax_to_torch_tree(p: Dict[str, Any], convert: Callable
                        ) -> Dict[str, Any]:
     sd: Dict[str, Any] = {}
-    for prefix, path, kind, optional in _entries(*_jax_structure(p)):
+    for prefix, path, kind, optional in _map_entries(p, jax_side=True):
         src = _get(p, path)
         if src is None:
             if optional:
@@ -145,7 +191,7 @@ def _torch_to_jax_tree(sd: Dict[str, Any], convert: Callable
                        ) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     used = set()
-    for prefix, path, kind, optional in _entries(*_torch_structure(sd)):
+    for prefix, path, kind, optional in _map_entries(sd, jax_side=False):
         if f"{prefix}.weight" not in sd:
             if optional:
                 continue
@@ -168,8 +214,8 @@ def _torch_to_jax_tree(sd: Dict[str, Any], convert: Callable
 
 def unet_state_dict_from_jax(params: Dict[str, Any]
                              ) -> Dict[str, torch.Tensor]:
-    """JAX ``{"params": {...}}`` (or the inner tree) -> the port's UNet
-    ``state_dict`` (f32 CPU tensors)."""
+    """JAX ``{"params": {...}}`` (or the inner tree) of a UNet or a DiT ->
+    the port's ``state_dict`` of that denoiser (f32 CPU tensors)."""
     p = params["params"] if "params" in params else params
     return _jax_to_torch_tree(
         p, lambda a: torch.from_numpy(np.array(a, dtype=np.float32)))
@@ -177,8 +223,8 @@ def unet_state_dict_from_jax(params: Dict[str, Any]
 
 def unet_params_to_jax(state_dict: Dict[str, torch.Tensor]
                        ) -> Dict[str, Any]:
-    """The port's UNet ``state_dict`` -> JAX ``{"params": {...}}`` of
-    numpy f32 arrays."""
+    """The port's UNet or DiT ``state_dict`` -> JAX ``{"params": {...}}``
+    of numpy f32 arrays."""
     return {"params": _torch_to_jax_tree(
         state_dict,
         lambda t: np.ascontiguousarray(

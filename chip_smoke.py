@@ -57,7 +57,7 @@ Phases (any failure raises and exits non-zero without the final line):
  16. the experiment loop at the paper's width, the fourth main path,
      through ``cli.main`` in-process: synthetic shards at 64 px in a
      temporary directory, configs/small-tpu-1.yaml read with the port's
-     YAML reader and cut to 30 steps (evals at 20 and 30, DDIM 20 steps,
+     YAML reader and cut to 30 steps (an eval at 30, DDIM 20 steps,
      EMA 0.999); -t (with vis grids and the best-model files), -r from
      it = 30, -e, -i -ex -ar -gif, and the run dir served over HTTP from
      its EMA shadow; the counters must rise by exactly 69 K1 and 8 K3
@@ -94,7 +94,35 @@ Phases (any failure raises and exits non-zero without the final line):
      model.msgpack holds the DiT's tree.  After phase 22, K3 is held
      against its plain version at every (B, S, C) that phases 18-22 gave
      it on the card (recorded by a wrapper around the DiT's call), the
-     errors joining K3's in the kernels line.
+     errors joining K3's in the kernels line;
+ dropout: one dense f32 training step at small-tpu-1's widths (batch 2:
+     12 UNet rows) with dropout 0.1 on the card, its masks drawn from the
+     Trainer's generator, against the same step on the CPU with those
+     masks fed in;
+ 23. more than one process, the eighth main path: ``cli.main -t`` and
+     an eval pass under ``python -m torch.distributed.run
+     --nproc_per_node=1`` (this script as each rank: ``--rank-child``)
+     at configs/small-tpu-1.yaml
+     for 10 steps with tpu.shard_opt_state and tpu.fused_feed on
+     synthetic 64 px shards: NCCL, DDP, ZeRO-1 at data 1, the fused feed,
+     a checkpoint holding the whole Adam tree and an eval; the loop's ms
+     per step against phase 16's;
+ 24. four ranks sharing the card (gloo over CUDA tensors) at
+     configs/small-tpu-4.yaml's published batch of 112 (28 per rank):
+     (a) three Trainer steps fed the global batches that one process on
+     the card steps through at R = 392, drawing from the same generator,
+     with replicated Adam and with ZeRO-1; (b) the same at tpu.mesh_view
+     2 (data 2 x view 2) with ZeRO-1; losses, first gradients and the
+     parameters after each update against the one process, the ranks'
+     parameters equal, per-rank peak memory and Adam bytes; (c)
+     ``cli.main -t`` and an eval pass on four ranks for 4 steps with ZeRO-1, a
+     checkpoint and an eval.  On a machine with two or more cards, (a)
+     also runs with NCCL and one rank per card.  Every rank prints its
+     K1-K3 launch counts and the UNet row counts it ran; the counts must
+     match its forwards and steps, join the kernels line's launches, and
+     K1-K3 are held against their plain versions at every per-rank row
+     count.  A rank that fails, hangs past its timeout or disagrees
+     fails the phase.
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 
@@ -116,7 +144,15 @@ conv3x3 step: the loss equal bit for bit (the same forward), each conv
 weight gradient within 1e-2 relative L2 of cuDNN's (rounded to bf16, one
 ulp is 3.9e-3), all gradients within 5e-2.  The tiny ancestral chain:
 samples, frames, logits and weights within 1e-4; segmented equal to one
-call bit for bit.  The tiny f32 DiT steps: phase 11's 1e-4.  LPIPS card
+call bit for bit.  The tiny f32 DiT steps and the dropout step: phase
+11's 1e-4.  Phase 24 against one process (bf16; the ranks run other row
+subsets and sum in another order): losses within 1e-2 relative and the
+first gradients within 5e-2 relative L2 (phase 9's bounds), each
+parameter within twice the learning rates summed so far (Adam moves an
+element by at most about lr a step, and rounding-noise gradients can
+flip its sign), the parameter updates within 0.5 relative L2 (a rank
+whose ZeRO-1 slices did not arrive would be near 1), and the ranks'
+parameters equal bit for bit.  LPIPS card
 against CPU within 1e-4 relative (f32 sums over 13 conv layers in another
 order, TF32 off); compute_metrics PSNR within 1e-6 relative, SSIM within
 1e-6, LPIPS within 1e-4 relative.
@@ -126,8 +162,10 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -139,6 +177,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from viewfusion_tpu_torch import _native
@@ -163,13 +202,15 @@ from viewfusion_tpu_torch.data.tario import iter_tar_samples
 from viewfusion_tpu_torch.models import dit as dit_module
 from viewfusion_tpu_torch.models.dit import DiT
 from viewfusion_tpu_torch.ops.lpips import load_lpips
+from viewfusion_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                shard_batch)
 from viewfusion_tpu_torch.serving import (ViewFusionService, make_server,
                                           write_run_dir)
 from viewfusion_tpu_torch.utils import compute_metrics
 from viewfusion_tpu_torch.training.checkpoint import Checkpoint
 from viewfusion_tpu_torch.training.trainer import (Trainer,
                                                    global_packed_counts,
-                                                   norm_img)
+                                                   norm_img, packed_indices)
 from viewfusion_tpu_torch.utils.convert import (load_trainer_state,
                                                 trainer_state_to_jax,
                                                 unet_state_dict_from_jax)
@@ -638,11 +679,13 @@ def check_chain_against_cpu(device) -> None:
         raise AssertionError(f"card chain disagrees with the CPU: {err}")
 
 
-def check_group_norm_backward(gn_sites, groups: int, device) -> dict:
+def check_group_norm_backward(gn_sites, groups: int, device,
+                              rows: int = TRAIN_ROWS) -> dict:
     """K2 against its plain version at each GroupNorm site of the paper
-    UNet at the training batch, from K1's saved statistics: bf16 (timed)
-    and f32 at every site, plus the other act at the largest site.
-    Per-step totals weight each site by its count in one backward."""
+    UNet at ``rows`` rows (the training batch), from K1's saved
+    statistics: bf16 (timed where the site's count is not 0) and f32 at
+    every site, plus the other act at the largest site.  Per-step totals
+    weight each site by its count in one backward."""
     g = torch.Generator(device=device).manual_seed(SEED + 5)
     tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
                          "bound_bytes_ms", "max_abs_err"), 0.0)
@@ -653,9 +696,9 @@ def check_group_norm_backward(gn_sites, groups: int, device) -> dict:
              for dtype in (torch.bfloat16, torch.float32)]
     cases += [(other, torch.bfloat16, 0), (other, torch.float32, 0)]
     for (l, c, act), dtype, count in cases:
-        x = (torch.randn((TRAIN_ROWS, l, c), generator=g, device=device)
+        x = (torch.randn((rows, l, c), generator=g, device=device)
              * 1.5 + 0.5).to(dtype)
-        gy = torch.randn((TRAIN_ROWS, l, c), generator=g,
+        gy = torch.randn((rows, l, c), generator=g,
                          device=device).to(dtype)
         scale = torch.randn((c,), generator=g, device=device) * 0.5 + 1.0
         bias = torch.randn((c,), generator=g, device=device) * 0.5
@@ -679,6 +722,7 @@ def check_group_norm_backward(gn_sites, groups: int, device) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(out, again)):
             raise AssertionError(f"K2 {(l, c, act)} {dtype}: two calls differ")
         name = f"K2 L={l} C={c} act={act} {str(dtype)[6:]} x{count}"
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
         if not count:
             say(f"{name}: dx err {err:.3g} (tol {tol:.3g}), partials rel "
                 f"err {perr:.3g}, repeatable; {plan_note(x, backward=True)}")
@@ -1281,10 +1325,10 @@ def serve_run_dir(run: str, device) -> int:
     return service.model.unet_forwards
 
 
-def run_experiment(k1_sites: int, k3_sites: int, trainer_ms: float) -> dict:
+def run_experiment(k1_sites: int, k3_sites: int, trainer_ms: float):
     """The experiment loop, a main path: cli.main -t, -r, -e and -i on
     a run dir in a temporary directory, then the run dir served.  Returns
-    the launches of the phase."""
+    the launches of the phase and the loop's median ms per step."""
     cwd = os.getcwd()
     tmp = tempfile.TemporaryDirectory(prefix="vf-phase16-")
     try:
@@ -1297,7 +1341,9 @@ def run_experiment(k1_sites: int, k3_sites: int, trainer_ms: float) -> dict:
         mb = sum(f.stat().st_size for f in Path(data).iterdir()) / 2 ** 20
         say(f"phase 16 shards: {2 * EXP_OBJECTS} objects x 24 views at 64 "
             f"px, {mb:.1f} MB, written in {time.perf_counter() - t0:.1f} s")
-        cfg_path = experiment_config(data)
+        # one eval, at 30: the vis grid's 2000-step chain is the phase's
+        # longest part
+        cfg_path = experiment_config(data, model__validate_from=30)
         group_norm_act.launches = group_norm_act_backward.launches = 0
         spatial_self_attention.launches = 0
         forwards, steps, exps = 0, 0, []
@@ -1325,16 +1371,15 @@ def run_experiment(k1_sites: int, k3_sites: int, trainer_ms: float) -> dict:
         missing = [n for n in ("config.yaml", "model.msgpack",
                                "best_model_ssim.msgpack",
                                "best_model_psnr.msgpack",
-                               "best_model_all.msgpack", "output-20.png",
-                               "output-30.png")
+                               "best_model_all.msgpack", "output-30.png")
                    if not os.path.exists(os.path.join(run, n))]
         if (missing or sorted(losses) != list(range(0, EXP_MAX_IT + 1, 5))
                 or not all(np.isfinite(v) for v in losses.values())
-                or sorted(evals) != [20, 30] or exp.it != EXP_MAX_IT):
+                or sorted(evals) != [30] or exp.it != EXP_MAX_IT):
             raise AssertionError(f"-t run dir: missing {missing}, losses "
                                  f"{losses}, evals {evals}, it {exp.it}")
-        say(f"-t: {exp.trainer.step} steps in {train_s:.1f} s (two evals, "
-            f"two vis grids), reader {exp.train_stream.reader}; losses "
+        say(f"-t: {exp.trainer.step} steps in {train_s:.1f} s (an eval and "
+            f"its vis grid), reader {exp.train_stream.reader}; losses "
             + " ".join(f"{k}:{v:.5f}" for k, v in sorted(losses.items()))
             + "; eval " + ", ".join(f"it {k}: ssim {a:.4f} psnr {b:.2f}"
                                     for k, (a, b) in sorted(evals.items())))
@@ -1437,7 +1482,7 @@ def run_experiment(k1_sites: int, k3_sites: int, trainer_ms: float) -> dict:
         say(f"launches on the experiment path: K1 {launches['k1']}, K2 "
             f"{launches['k2']}, K3 {launches['k3']} over {forwards} UNet "
             f"forwards and {steps} training steps")
-        return launches
+        return launches, loop_ms
     finally:
         os.chdir(cwd)
         tmp.cleanup()
@@ -1936,6 +1981,500 @@ def run_dit_phases(device) -> dict:
             "calls": calls, "config": dcfg}
 
 
+# ----------------------------------------------------------------------
+# phases 23-24: more than one process under torchrun; dropout on the card
+# ----------------------------------------------------------------------
+# batch 112: 28 per rank at 4; by absolute path, for the ranks run
+# from a temporary directory
+MP_CONFIG = str(Path(__file__).resolve().parent / "configs/small-tpu-4.yaml")
+MP_RANKS = 4
+MP_STEPS = 3                  # phase 24 (a), (b): Trainer steps per case
+MP_CASES = (("a", {}), ("a_zero1", {"shard_opt_state": True}),
+            ("b_view2", {"mesh_view": 2, "shard_opt_state": True}))
+MP_CLI_MAX_IT = 9             # phase 23: it 0..9, ten steps
+MP_EXP_MAX_IT = 3             # phase 24 (c): four steps
+CHILD_TIMEOUT = 600           # seconds for one torchrun launch
+DROPOUT = 0.1
+
+
+def mp_config(**tpu) -> Config:
+    """configs/small-tpu-4.yaml through the port's reader, at its
+    published global batch of 112."""
+    raw = parse_yaml(Path(MP_CONFIG).read_text())
+    raw.setdefault("tpu", {}).update(tpu)
+    return Config.from_dict(raw)
+
+
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().float().reshape(-1) for t in tensors])
+
+
+def _local_rows(batch: dict, mesh) -> dict:
+    """This rank's samples of a global host batch, with the packed rows
+    of its own samples."""
+    local = shard_batch({k: v for k, v in batch.items()
+                         if k not in ("sample_idx", "view_idx")}, mesh)
+    local["sample_idx"], local["view_idx"] = packed_indices(
+        local["view_count"])
+    return local
+
+
+def mp_reference(ref_dir: str, device) -> dict:
+    """One process on the card at small-tpu-4's batch of 112 (R = 392):
+    MP_STEPS Trainer steps on seeded batches, drawing from the
+    generator; the parameters before and after each update and the first
+    step's gradients go to ``ref_dir`` for the ranks to compare with."""
+    cfg = mp_config()
+    trainer = Trainer(cfg, device=device, seed=SEED)
+    rng = np.random.default_rng(SEED + 24)
+    batches = [train_batch(cfg, it, rng) for it in range(MP_STEPS)]
+    torch.save(_flat(trainer.params).cpu(), os.path.join(ref_dir,
+                                                         "start.pt"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for it, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch).item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        if it == 0:
+            torch.save(_flat(p.grad for p in trainer.params).cpu(),
+                       os.path.join(ref_dir, "grads-0.pt"))
+        torch.save(_flat(trainer.params).cpu(),
+                   os.path.join(ref_dir, f"params-{it}.pt"))
+    out = {"losses": losses, "rows": len(batches[0]["sample_idx"]),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "adam_bytes": sum(t.numel() * t.element_size()
+                             for st in trainer.optimizer.state.values()
+                             for k, t in st.items() if k != "step"),
+           "ms": times}
+    say(f"phase 24 reference, one process at batch 112 (R = {out['rows']}):"
+        f" losses {' '.join(f'{v:.6f}' for v in losses)}; ms per step "
+        + " ".join(f"{t:.1f}" for t in times)
+        + f"; peak {out['peak_gib']:.2f} GiB; Adam m and v "
+        f"{out['adam_bytes'] / 2 ** 20:.1f} MiB")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def torchrun(nproc: int, args: list, cwd: str) -> list:
+    """``chip_smoke.py --rank-child <args>`` on ``nproc`` ranks under
+    ``python -m torch.distributed.run``; each rank prints one ``CHILD
+    {json}`` line.  Returns the ranks' records in rank order.  A launch
+    that fails, outlasts CHILD_TIMEOUT or loses a rank's record raises;
+    the whole process group is killed on the way out."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(Path(__file__).resolve()),
+           "--rank-child", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"torchrun {args[0]} on {nproc} ranks outlasted"
+                             f" {CHILD_TIMEOUT} s:\n{out[-6000:]}")
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+    recs = [json.loads(line.split("CHILD ", 1)[1])
+            for line in out.splitlines() if "CHILD {" in line]
+    for line in out.splitlines():
+        if "CHILD {" not in line:
+            print("    | " + line)
+    if proc.returncode != 0 or len(recs) != nproc:
+        raise AssertionError(f"torchrun {args[0]} on {nproc} ranks: rc "
+                             f"{proc.returncode}, {len(recs)} records:\n"
+                             f"{out[-6000:]}")
+    say(f"torchrun {args[0]}: {nproc} ranks in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return sorted(recs, key=lambda r: r["rank"])
+
+
+def _child_cli(argv: list) -> dict:
+    """``cli.main(argv)`` (``-t``) on this rank, then an eval pass of the
+    Experiment (the best-model files); the loop's step times, the run
+    dir's checks (rank 0) and what the Experiment ran on."""
+    exp = cli.main(argv)
+    exp.eval()
+    tr = exp.trainer
+    run = exp.out_dir
+    forwards = tr.model.unet_forwards + (
+        tr.ema_model.unet_forwards if tr.ema_model else 0)
+    rec = {"forwards": forwards, "steps": tr.step, "it": exp.it,
+           "loop_ms": float(np.median(np.diff(exp.step_ends)[1:] * 1e3)),
+           "zero1": tr.zero1 is not None,
+           "fused_feed": exp.config.train.fused_feed,
+           "mesh": [exp.mesh.data, exp.mesh.view],
+           "eval_seconds": exp.eval_seconds, "run": run,
+           "moment_bytes": tr.zero1.moment_bytes() if tr.zero1 else None}
+    if exp.is_host0:
+        state, extra = Checkpoint(run).load("model.msgpack",
+                                            dict.fromkeys(EXP_FIELDS))
+        p_shapes = [a.shape for a in _leaves(state["params"])]
+        for key in ("mu", "nu"):
+            m_shapes = [a.shape for a in _leaves(
+                state["opt_state"]["0"][key])]
+            if m_shapes != p_shapes:
+                raise AssertionError(f"model.msgpack {key}: not the whole "
+                                     f"Adam tree")
+        rec["msgpack"] = {"it": extra["it"], "tensors": len(p_shapes),
+                          "best": sorted(f for f in os.listdir(run)
+                                         if f.startswith("best_model"))}
+    return rec
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def _child_steps(ref_dir: str) -> dict:
+    """Phase 24 (a), (b): each case of MP_CASES takes MP_STEPS Trainer
+    steps on this rank's rows of the reference's batches; rank 0 holds
+    its loss, first gradients and parameters against the reference's."""
+    device = initialize_distributed("cuda")
+    out = {}
+    for name, tpu in MP_CASES:
+        cfg = mp_config(**tpu)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        trainer = Trainer(cfg, device=device, seed=SEED)
+        rng = np.random.default_rng(SEED + 24)
+        batches = [train_batch(cfg, it, rng) for it in range(MP_STEPS)]
+        start = torch.load(os.path.join(ref_dir, "start.pt")).to(device)
+        rec = {"loss": [], "update_rel": [], "param_max": [], "ms": []}
+        for it, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            rec["loss"].append(trainer.train_step(
+                _local_rows(batch, trainer.mesh)).item())
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            if trainer.mesh.rank:
+                continue
+            mine = _flat(trainer.params)
+            ref = torch.load(os.path.join(ref_dir, f"params-{it}.pt")).to(
+                device)
+            upd, upd_ref = mine - start, ref - start
+            rec["update_rel"].append(
+                ((upd - upd_ref).norm() / upd_ref.norm()).item()
+                if upd_ref.norm() > 0 else float(upd.norm()))
+            rec["param_max"].append((mine - ref).abs().max().item())
+            rec.setdefault("lr", []).append(float(trainer.lr_fn(it)))
+            if it == 0:
+                g = _flat(p.grad for p in trainer.params)
+                g_ref = torch.load(os.path.join(ref_dir, "grads-0.pt")).to(
+                    device)
+                rec["grad_rel"] = ((g - g_ref).norm() / g_ref.norm()).item()
+            del mine, ref, upd, upd_ref
+        rec["checksum"] = float(_flat(trainer.params).double().sum())
+        rec["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        rec["adam_bytes"] = (trainer.zero1.moment_bytes() if trainer.zero1
+                             else sum(t.numel() * t.element_size()
+                                      for st in trainer.optimizer.state
+                                      .values()
+                                      for k, t in st.items() if k != "step"))
+        rec["mesh"] = [trainer.mesh.data, trainer.mesh.view]
+        out[name] = rec
+        del trainer, start
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_child(argv: list) -> int:
+    """A rank of a torchrun launch (``--rank-child cli <cli argv>`` or
+    ``--rank-child steps <reference dir>``): runs it with the kernels'
+    counters at 0 and the UNet's row counts recorded, then prints one
+    ``CHILD {json}`` line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = Counter()
+    forward = UNet.forward
+
+    def counted(self, x, *a, **kw):
+        rows[(int(x.shape[0]), torch.is_grad_enabled())] += 1
+        return forward(self, x, *a, **kw)
+
+    UNet.forward = counted
+    group_norm_act.launches = group_norm_act_backward.launches = 0
+    spatial_self_attention.launches = 0
+    kind, args = argv[0], argv[1:]
+    rec = _child_cli(args) if kind == "cli" else {"cases": _child_steps(
+        args[0])}
+    torch.cuda.synchronize()
+    rec.update(rank=dist.get_rank(), world=dist.get_world_size(),
+               backend=dist.get_backend(),
+               device=torch.cuda.current_device(),
+               launches={"k1": group_norm_act.launches,
+                         "k2": group_norm_act_backward.launches,
+                         "k3": spatial_self_attention.launches},
+               rows=[[r, g, n] for (r, g), n in sorted(rows.items())],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print("CHILD " + json.dumps(rec), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def check_rank_rows(rows: dict, groups: int, device) -> dict:
+    """K1 and K3 at every per-rank row count the ranks' UNets ran at, K2
+    at the training ones, each against its plain version at every site
+    of the paper UNet (untimed).  Returns the largest errors."""
+    unet = paper_unet(device)
+    errs = {"k1": 0.0, "k2": 0.0, "k3": 0.0}
+    for r in sorted(rows):
+        gn, attn = sites(unet, r, device)
+        with contextlib.redirect_stdout(io.StringIO()):
+            e = {"k1": check_group_norm(gn, groups, device, rows=r,
+                                        timed=False)["max_abs_err"],
+                 "k3": check_attention(attn, device, rows=r,
+                                       timed=False)["max_abs_err"]}
+            if rows[r]:
+                e["k2"] = check_group_norm_backward(
+                    Counter(dict.fromkeys(gn, 0)), groups, device,
+                    rows=r)["max_abs_err"]
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+        say(f"  K1/K2/K3 at the ranks' {r} rows "
+            f"({'training' if rows[r] else 'no grad'}) against their plain "
+            "versions at every site: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
+    del unet
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _check_launches(recs, k1_sites: int, k3_sites: int, what: str) -> dict:
+    """Each rank's counters against its UNet forwards and steps; returns
+    the ranks' sums."""
+    total = Counter()
+    for r in recs:
+        fwd = sum(n for _, _, n in r["rows"])
+        steps = sum(n for _, g, n in r["rows"] if g)
+        want = {"k1": k1_sites * fwd, "k2": k1_sites * steps,
+                "k3": k3_sites * fwd}
+        if r["launches"] != want or not fwd:
+            raise AssertionError(f"{what} rank {r['rank']}: launches "
+                                 f"{r['launches']} != {want}")
+        total.update(r["launches"])
+    return dict(total)
+
+
+def check_dropout_against_cpu(device, k1_sites: int, k3_sites: int) -> dict:
+    """One dense f32 training step at small-tpu-1's widths with dropout
+    0.1 (batch cut to 2: 12 UNet rows) on the card, its masks drawn from
+    the Trainer's generator, against the same step on the CPU with those
+    masks fed in: loss and gradients within 1e-4.  Returns the
+    launches."""
+    raw = json.loads(json.dumps(PAPER_CONFIG))
+    raw["model"]["denoise_net_params"]["dropout"] = DROPOUT
+    raw["data"]["params"]["batch_size"] = 2
+    raw["tpu"].update(packed_views=False, compute_dtype="float32")
+    cfg = Config.from_dict(raw)
+    card = Trainer(cfg, device=device, seed=SEED)
+    state = {k: v.detach().cpu() for k, v in
+             card.model.unet.state_dict().items()}
+    cpu = Trainer(cfg, device="cpu", state_dict=state)
+    rng = np.random.default_rng(SEED + 25)
+    b, n, hw = 2, cfg.data.max_views, cfg.unet.image_size
+    batch = {"target": rng.uniform(0, 1, (b, hw, hw, 3)).astype(np.float32),
+             "cond": rng.uniform(0, 1, (b, n, hw, hw, 3)).astype(np.float32),
+             "angle": rng.uniform(0, 6.3, b).astype(np.float32),
+             "view_count": np.asarray([3, 6], np.int32)}
+    noise = rng.normal(size=(b, hw, hw, 3)).astype(np.float32)
+    gammas = rng.uniform(0.05, 0.95, b).astype(np.float32)
+    masks = {}
+    draw = UNet._dropout_mask
+
+    def record(self, layer, h, name, dropout):
+        mask = draw(self, layer, h, name, dropout)
+        masks[name + ".res_block.block2.block.2"] = mask.permute(
+            0, 2, 3, 1).cpu()
+        return mask
+
+    group_norm_act.launches = group_norm_act_backward.launches = 0
+    spatial_self_attention.launches = 0
+    UNet._dropout_mask = record
+    try:
+        loss_card = card.train_step(batch, noise=noise,
+                                    sample_gammas=gammas).item()
+    finally:
+        UNet._dropout_mask = draw
+    torch.cuda.synchronize()
+    launches = {"k1": group_norm_act.launches,
+                "k2": group_norm_act_backward.launches,
+                "k3": spatial_self_attention.launches}
+    want = {"k1": k1_sites, "k2": k1_sites, "k3": k3_sites}
+    if launches != want:
+        raise AssertionError(f"dropout step launches {launches} != {want}")
+    loss_cpu = cpu.train_step(batch, noise=noise, sample_gammas=gammas,
+                              masks=masks).item()
+    g_card = _flat(p.grad for p in card.params).cpu()
+    g_cpu = _flat(p.grad for p in cpu.params)
+    rel_loss = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    g_err = (g_card - g_cpu).abs().max().item() / g_cpu.abs().max().item()
+    kept = float(np.mean([m.float().mean().item() for m in masks.values()]))
+    blocks = sum(isinstance(m, unet_module.ResnetBlocWithAttn)
+                 for m in card.model.unet.modules())
+    say(f"dropout {DROPOUT}: one dense f32 step at small-tpu-1 widths "
+        f"({b * n} rows) on the card vs the CPU with the card's {len(masks)}"
+        f" masks (kept {kept:.4f}): loss {loss_card:.7f} vs {loss_cpu:.7f} "
+        f"(rel {rel_loss:.3g}), gradients {g_err:.3g} of the largest")
+    if not (len(masks) == blocks and rel_loss <= 1e-4 and g_err <= 1e-4
+            and abs(kept - (1 - DROPOUT)) < 0.01):
+        raise AssertionError(f"dropout step disagrees: {len(masks)} masks "
+                             f"of {blocks}, loss rel {rel_loss}, gradients "
+                             f"{g_err}, kept {kept}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_mp_steps(recs: list, ref: dict, how: str) -> None:
+    """Phase 24 (a), (b): each case of MP_CASES on the ranks against the
+    one process (``ref``), with the bounds of the module docstring; prints
+    a line per case, ``how`` saying what the step times measure."""
+    for name, tpu in MP_CASES:
+        case = [r["cases"][name] for r in recs]
+        c0 = case[0]
+        lr_sum = np.cumsum(c0["lr"])
+        rel = [abs(a - b) / abs(b) for a, b in zip(c0["loss"],
+                                                   ref["losses"])]
+        equal = len({c["checksum"] for c in case}) == 1
+        say(f"phase 24 ({name}, {tpu or 'replicated Adam'}, mesh "
+            f"{c0['mesh'][0]}x{c0['mesh'][1]}, {recs[0]['backend']} on "
+            f"{len({r['device'] for r in recs})} card(s)): losses "
+            + " ".join(f"{v:.6f}" for v in c0["loss"])
+            + f" (rel to one process {max(rel):.3g}), first gradients "
+            f"rel L2 {c0['grad_rel']:.3g}, updates rel L2 "
+            + " ".join(f"{u:.3g}" for u in c0["update_rel"])
+            + ", parameters max diff "
+            + " ".join(f"{m:.3g}" for m in c0["param_max"])
+            + f"; ranks equal: {equal}; per rank peak "
+            + " ".join(f"{c['peak_gib']:.2f}" for c in case)
+            + " GiB, Adam m and v "
+            + " ".join(f"{c['adam_bytes'] / 2 ** 20:.1f}" for c in case)
+            + " MiB; ms per step (rank 0) "
+            + " ".join(f"{t:.0f}" for t in c0["ms"]) + f" ({how})")
+        if not (equal and max(rel) <= 1e-2 and c0["grad_rel"] <= 5e-2
+                and all(m <= 2 * s + 1e-6 for m, s in
+                        zip(c0["param_max"], lr_sum))
+                and all(u <= 0.5 for u in c0["update_rel"])):
+            raise AssertionError(f"phase 24 ({name}) disagrees with one "
+                                 f"process: {c0}")
+
+
+def mp_steps_nccl(ref_dir: str, ref: dict, cwd: str, k1_sites: int,
+                  k3_sites: int):
+    """Phase 24 (a), (b) with NCCL and one rank per card (on 4 cards, or
+    2), against the same one process.  Returns the launches and the
+    ranks' records."""
+    nproc = 4 if torch.cuda.device_count() >= 4 else 2
+    recs = torchrun(nproc, ["steps", ref_dir], cwd)
+    placed = [(r["backend"], r["device"]) for r in recs]
+    if {b for b, _ in placed} != {"nccl"} or len(set(placed)) != nproc:
+        raise AssertionError(f"phase 24 NCCL: ranks on {placed}")
+    check_mp_steps(recs, ref, f"NCCL, one rank per card on {nproc} cards")
+    return _check_launches(recs, k1_sites, k3_sites, "phase 24 NCCL"), recs
+
+
+def run_mp_phases(device, k1_sites: int, k3_sites: int, loop_ms: float,
+                  groups: int) -> dict:
+    """Phases 23-24 and the dropout step.  Returns the launches by path and
+    K1-K3's largest errors at the ranks' row counts."""
+    launches = {"dropout": check_dropout_against_cpu(device, k1_sites,
+                                                     k3_sites)}
+    tmp = tempfile.TemporaryDirectory(prefix="vf-phase23-")
+    try:
+        data = os.path.join(tmp.name, "data")
+        for mode, seed in (("train", 1), ("test", 2)):
+            make_synthetic_shards(data, mode, num_objects=EXP_OBJECTS,
+                                  num_shards=4, image_size=64, seed=seed,
+                                  family="shaded")
+        rows = Counter()
+
+        def note_rows(recs):
+            for r in recs:
+                for n_rows, grad, _ in r["rows"]:
+                    rows[n_rows] |= grad
+
+        # 23. one rank under torchrun: NCCL, DDP, ZeRO-1, the fused feed
+        cfg23 = experiment_config(
+            data, phase=23, model__max_it=MP_CLI_MAX_IT,
+            model__checkpoint_every=5, model__validate_from=100,
+            tpu__profile_steps=0, tpu__shard_opt_state=True,
+            tpu__fused_feed=True)
+        recs = torchrun(1, ["cli", "-c", cfg23, "-t"], tmp.name)
+        r = recs[0]
+        if not (r["backend"] == "nccl" and r["zero1"] and r["fused_feed"]
+                and r["steps"] == MP_CLI_MAX_IT + 1
+                and r["msgpack"]["it"] == MP_CLI_MAX_IT
+                and r["msgpack"]["best"]):
+            raise AssertionError(f"phase 23: {r}")
+        launches["mp_cli_1rank"] = _check_launches(recs, k1_sites, k3_sites,
+                                                   "phase 23")
+        note_rows(recs)
+        say(f"phase 23 on {card_line()}: one NCCL rank, DDP, ZeRO-1 at data "
+            f"1, fused feed: loop median {r['loop_ms']:.1f} ms per step "
+            f"(steps 2-{r['steps']}) against phase 16's {loop_ms:.1f} ms; "
+            f"eval {r['eval_seconds'][0]:.2f} s; model.msgpack at it "
+            f"{r['msgpack']['it']} with {r['msgpack']['tensors']} tensors "
+            f"and the whole Adam tree; peak {r['peak_gib']:.2f} GiB")
+
+        # 24 (a), (b): Trainer steps on four ranks sharing the card
+        ref_dir = os.path.join(tmp.name, "ref")
+        os.makedirs(ref_dir)
+        ref = mp_reference(ref_dir, device)
+        recs = torchrun(MP_RANKS, ["steps", ref_dir], tmp.name)
+        launches["mp_steps_4ranks"] = _check_launches(
+            recs, k1_sites, k3_sites, "phase 24 (a, b)")
+        note_rows(recs)
+        check_mp_steps(recs, ref, "four ranks time-share one card and gloo "
+                       "stages through the host: no measure of multi-GPU "
+                       "speed")
+        if torch.cuda.device_count() >= 2:
+            launches["mp_steps_nccl"], recs = mp_steps_nccl(
+                ref_dir, ref, tmp.name, k1_sites, k3_sites)
+            note_rows(recs)
+        else:
+            say("phase 24 (a) with NCCL and one rank per card: not run, "
+                f"{torch.cuda.device_count()} card")
+
+        # 24 (c): the Experiment on four ranks
+        cfg24 = experiment_config(
+            data, source=MP_CONFIG, phase=24, model__max_it=MP_EXP_MAX_IT,
+            model__checkpoint_every=2, model__validate_from=100,
+            tpu__profile_steps=0, tpu__shard_opt_state=True)
+        recs = torchrun(MP_RANKS, ["cli", "-c", cfg24, "-t"], tmp.name)
+        r = recs[0]
+        if not (len({x["run"] for x in recs}) == 1
+                and all(x["mesh"] == [MP_RANKS, 1] and x["zero1"]
+                        for x in recs)
+                and r["msgpack"]["it"] == MP_EXP_MAX_IT
+                and r["steps"] == MP_EXP_MAX_IT + 1):
+            raise AssertionError(f"phase 24 (c): {recs}")
+        launches["mp_experiment_4ranks"] = _check_launches(
+            recs, k1_sites, k3_sites, "phase 24 (c)")
+        note_rows(recs)
+        say(f"phase 24 (c): the Experiment on {MP_RANKS} ranks "
+            f"({r['backend']}, one card): {r['steps']} steps, loop median "
+            f"{r['loop_ms']:.0f} ms per step (time-shared card), eval "
+            f"{r['eval_seconds'][0]:.2f} s, model.msgpack at it "
+            f"{r['msgpack']['it']} with the whole Adam tree, best files "
+            f"{r['msgpack']['best']}; per rank peak "
+            + " ".join(f"{x['peak_gib']:.2f}" for x in recs)
+            + " GiB, Adam m and v "
+            + " ".join(f"{x['moment_bytes'] / 2 ** 20:.1f}" for x in recs)
+            + " MiB")
+        errs = check_rank_rows(rows, groups, device)
+        return {"launches": launches, "errs": errs}
+    finally:
+        tmp.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
@@ -2061,12 +2600,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 16. the experiment loop through the CLI: the fourth main path
-    exp_launches = run_experiment(k1_calls, k3_calls, trainer_ms)
+    exp_launches, loop_ms = run_experiment(k1_calls, k3_calls, trainer_ms)
     torch.cuda.empty_cache()
 
     # 17-22. the DiT family at configs/dit-small-tpu-4.yaml's widths
     dit = run_dit_phases(device)
     k3["max_abs_err"] = max(k3["max_abs_err"], dit["max_abs_err"])
+    torch.cuda.empty_cache()
+
+    # 23-24. more than one process under torchrun; dropout on the card
+    mp = run_mp_phases(device, k1_calls, k3_calls, loop_ms,
+                       cfg.unet.norm_groups)
+    for tot, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
+        tot["max_abs_err"] = max(tot["max_abs_err"], mp["errs"][key])
 
     kernels = []
     for name, route_src, replaces, tot, key, per in (
@@ -2088,6 +2634,8 @@ def main() -> int:
         by_path["experiment"] = exp_launches[key]
         if key == "k3":
             by_path.update(dit["launches"])
+        for path, counts in mp["launches"].items():
+            by_path[path] = counts[key]
         kernels.append({
             "name": name, "route": "cuda", "source": route_src,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -2132,4 +2680,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-child"]:  # a rank of phases 23-24
+        sys.exit(rank_child(sys.argv[2:]))
     sys.exit(main())

@@ -327,18 +327,66 @@ def test_sigterm_saves_the_last_completed_step(data_dir, tmp_path):
     assert extra["it"] == 2 and int(state["step"]) == 3
 
 
+@pytest.fixture(scope="module")
+def two_rank_knobs(tmp_path_factory):
+    """tpu.mesh_data: 2 (two data ranks, a shard each; with grad_accum 2,
+    so each rank's microbatches carry packed rows of their own lengths)
+    and tpu.mesh_view: 2 (one data rank, two view ranks), each an
+    Experiment of two gloo ranks (tests/_torch_port_ranks.py), in one
+    spawn."""
+    from tests import _torch_port_ranks as ranks
+
+    tmp = str(tmp_path_factory.mktemp("knobs"))
+    data = os.path.join(tmp, "data")
+    for mode in ("train", "test"):
+        make_synthetic_shards(data, mode, num_objects=8, num_shards=2,
+                              image_size=8)
+    calls = []
+    for name, tpu in (("mesh_data", {"mesh_data": 2, "grad_accum": 2}),
+                      ("mesh_view", {"mesh_view": 2})):
+        raw = _raw(data, **tpu)
+        for split in ("train", "test"):
+            raw["data"]["params"][split]["params"]["end_shard"] = 1
+        path = os.path.join(tmp, f"{name}.yaml")
+        with open(path, "w") as f:
+            f.write(dump_yaml(raw))
+        calls.append((ranks.knob_body, (path, os.path.join(tmp, name),
+                                        name)))
+    ranks.spawn(ranks.sequence_body, 2, tmp, calls)
+    return {name: [ranks.load(tmp, name, r) for r in range(2)]
+            for name in ("mesh_data", "mesh_view")}
+
+
 @pytest.mark.parametrize("tpu,what", [
     ({"fused_feed": True}, "tpu.fused_feed"),
     ({"shard_opt_state": True}, "tpu.shard_opt_state"),
     ({"mesh_data": 2}, "tpu.mesh_data"), ({"mesh_view": 2}, "tpu.mesh_view"),
 ])
-def test_unported_knobs_are_refused(data_dir, tmp_path, tpu, what):
+def test_knobs_once_refused_are_honoured(request, data_dir, tmp_path, tpu,
+                                         what):
+    """Each knob the loop once refused now builds the Experiment and
+    trains with it to max_it (4 steps): the fused feed and ZeRO-1 in one
+    process, the mesh knobs on two ranks (WORLD_SIZE > 1)."""
+    if what.startswith("tpu.mesh"):
+        recs = request.getfixturevalue("two_rank_knobs")[what[4:]]
+        want = (2, 1) if what == "tpu.mesh_data" else (1, 2)
+        assert [r["mesh"] for r in recs] == [want] * 2
+        assert [(r["it"], r["step"]) for r in recs] == [(3, 4)] * 2
+        assert recs[0]["out_dir"] == recs[1]["out_dir"]
+        assert os.path.exists(os.path.join(recs[0]["out_dir"],
+                                           "model.msgpack"))
+        return
     path = str(tmp_path / "r.yaml")
     with open(path, "w") as f:
         f.write(dump_yaml(_raw(data_dir, **tpu)))
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):
-        Experiment(ExperimentArgs(config=path, train=True, device="cpu"),
-                   log_root=str(tmp_path / "logs"))
+    exp = Experiment(ExperimentArgs(config=path, train=True, device="cpu"),
+                     log_root=str(tmp_path / "logs"))
+    assert (exp.trainer.zero1 is not None) == ("shard_opt_state" in tpu)
+    exp.train()
+    assert (exp.it, exp.trainer.step) == (3, 4)
+    losses = [json.loads(line)["loss"] for line in open(os.path.join(
+        exp.out_dir, "metrics.jsonl")) if "loss" in line]
+    assert losses and all(np.isfinite(losses))
 
 
 def test_eval_needs_a_best_checkpoint_and_cuda_is_the_default(

@@ -546,14 +546,25 @@ def test_fresh_init_follows_flax(jax_setup):
     assert abs(pooled[0].std() - 1.0) <= 0.03
 
 
-def test_dropout_is_refused():
+def test_dropout_builds_and_trains():
+    """dropout > 0 builds the UNet and the Trainer, and a dense step
+    draws masks from the Trainer's generator (one per ResnetBlock's
+    second Block, tests/test_torch_port_dropout.py holds them against
+    JAX): the loss differs from the same step at p = 0."""
     raw = copy.deepcopy(TINY_CONFIG)
     raw["model"]["denoise_net_params"]["dropout"] = 0.1
     cfg = Config.from_dict(raw)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ViewFusion.from_config(cfg)
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, device="cpu")
+    assert ViewFusion.from_config(cfg).unet.dropout == 0.1
+    batch = _batch(12)
+    losses = []
+    for p in (0.1, 0.0):
+        raw["model"]["denoise_net_params"]["dropout"] = p
+        tr = Trainer(Config.from_dict(raw), device="cpu", seed=3)
+        before = tr.generator.get_state()
+        losses.append(tr.train_step(batch).item())
+        assert np.isfinite(losses[-1]) and tr.step == 1
+        assert not torch.equal(tr.generator.get_state(), before)
+    assert losses[0] != losses[1]
 
 
 def test_remat_builds_and_recomputes(monkeypatch):

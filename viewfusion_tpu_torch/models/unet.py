@@ -26,8 +26,16 @@ A fresh UNet is initialised as flax initialises the JAX one: lecun-normal
 (truncated) conv and dense kernels, zero biases, GroupNorm scale one and
 bias zero.  ``remat=True`` recomputes each ``ResnetBlocWithAttn`` in the
 backward (``torch.utils.checkpoint``), as ``nn.remat`` does per block in
-JAX.  Dropout is not ported: a config that asks for it raises
-``NotImplementedError``.
+JAX.
+
+Dropout (``dropout > 0``) follows the fused GroupNorm+SiLU of each
+ResnetBlock's second Block and precedes its conv, as in JAX.  It is on
+only in a forward given ``dropout=``: a ``torch.Generator`` to draw the
+masks from, or a dict of masks by module name (tests feed JAX's).  Each
+block's mask (NHWC, keep probability 1 - p) is drawn before the block
+runs and passed into it, so a remat recomputation sees the same mask.
+Without ``dropout=`` (eval, sampling, the packed loss) the forward is the
+one without dropout.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from viewfusion_tpu_torch.config import UNetConfig
 from viewfusion_tpu_torch.ops.attention import spatial_self_attention
 from viewfusion_tpu_torch.ops.groupnorm import group_norm_act
 
-__all__ = ["UNet", "positional_encoding", "cast_matmul_weights_"]
+__all__ = ["UNet", "Dropout", "positional_encoding", "cast_matmul_weights_"]
 
 
 class Conv2d(nn.Conv2d):
@@ -130,22 +138,38 @@ class FeatureWiseAffine(nn.Module):
         return x + self.noise_func(noise_embed)[:, :, None, None]
 
 
-class Block(nn.Module):
-    """GroupNorm -> SiLU -> (dropout) -> 3x3 conv, as ``block.0`` ..
-    ``block.3``; the norm and SiLU are one fused op.  Dropout is not
-    ported (the UNet refuses a config with ``dropout > 0``)."""
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout``: where the (NCHW view of an NHWC) ``mask``
+    keeps an element, ``x / (1 - p)``, else 0; the identity without a
+    mask."""
 
-    def __init__(self, dim: int, dim_out: int, groups: int = 32):
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, mask=None):
+        if mask is None:
+            return x
+        return torch.where(mask, x / (1.0 - self.p), 0.0).to(x.dtype)
+
+
+class Block(nn.Module):
+    """GroupNorm -> SiLU -> dropout -> 3x3 conv, as ``block.0`` ..
+    ``block.3``; the norm and SiLU are one fused op."""
+
+    def __init__(self, dim: int, dim_out: int, groups: int = 32,
+                 dropout: float = 0.0):
         super().__init__()
         self.block = nn.Sequential(
             GroupNormAct(groups, dim, act="silu"),
             nn.Identity(),  # SiLU, fused into block.0
-            nn.Identity(),  # dropout
+            Dropout(dropout),
             Conv2d(dim, dim_out, 3, padding=1),
         )
 
-    def forward(self, x):
-        return self.block(x)
+    def forward(self, x, mask=None):
+        h = self.block[2](self.block[0](x), mask)
+        return self.block[3](h)
 
 
 class ResnetBlock(nn.Module):
@@ -153,18 +177,19 @@ class ResnetBlock(nn.Module):
     residual projection when the channel count changes."""
 
     def __init__(self, dim: int, dim_out: int, noise_dim: int,
-                 norm_groups: int = 32):
+                 norm_groups: int = 32, dropout: float = 0.0):
         super().__init__()
         self.noise_func = FeatureWiseAffine(noise_dim, dim_out)
         self.block1 = Block(dim, dim_out, groups=norm_groups)
-        self.block2 = Block(dim_out, dim_out, groups=norm_groups)
+        self.block2 = Block(dim_out, dim_out, groups=norm_groups,
+                            dropout=dropout)
         self.res_conv = (Conv2d(dim, dim_out, 1) if dim != dim_out
                          else nn.Identity())
 
-    def forward(self, x, time_emb):
+    def forward(self, x, time_emb, mask=None):
         h = self.block1(x)
         h = self.noise_func(h, time_emb)
-        h = self.block2(h)
+        h = self.block2(h, mask)
         return h + self.res_conv(x)
 
 
@@ -190,14 +215,16 @@ class SelfAttention(nn.Module):
 
 class ResnetBlocWithAttn(nn.Module):
     def __init__(self, dim: int, dim_out: int, noise_dim: int,
-                 norm_groups: int = 32, with_attn: bool = False):
+                 norm_groups: int = 32, with_attn: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
-        self.res_block = ResnetBlock(dim, dim_out, noise_dim, norm_groups)
+        self.res_block = ResnetBlock(dim, dim_out, noise_dim, norm_groups,
+                                     dropout)
         self.attn = (SelfAttention(dim_out, norm_groups) if with_attn
                      else None)
 
-    def forward(self, x, time_emb):
-        x = self.res_block(x, time_emb)
+    def forward(self, x, time_emb, mask=None):
+        x = self.res_block(x, time_emb, mask)
         return x if self.attn is None else self.attn(x)
 
 
@@ -226,18 +253,18 @@ class Upsample(nn.Module):
 class UNet(nn.Module):
     """The full denoiser.
 
-    ``forward(x, angle, noise_level)``: x (B, H, W, in_channel) NHWC,
-    angle (B,), noise_level (B,) -> (B, H, W, out_channel) f32 NHWC.
+    ``forward(x, angle, noise_level, dropout=None)``: x (B, H, W,
+    in_channel) NHWC, angle (B,), noise_level (B,) -> (B, H, W,
+    out_channel) f32 NHWC; ``dropout`` turns dropout on (see the module
+    docstring).
     """
 
     def __init__(self, config: UNetConfig, dtype: torch.dtype = torch.float32,
                  remat: bool = False):
         super().__init__()
-        if config.dropout > 0:
-            raise NotImplementedError(
-                f"UNet dropout {config.dropout} is not ported yet")
         cfg = self.config = config
         self.dtype, self.remat = dtype, remat
+        self.dropout = cfg.dropout
         inner = cfg.inner_channel
         groups = cfg.norm_groups
         if cfg.with_noise_level_emb:
@@ -256,7 +283,8 @@ class UNet(nn.Module):
             channel_mult = inner * cfg.channel_mults[ind]
             for _ in range(cfg.res_blocks):
                 downs.append(ResnetBlocWithAttn(
-                    pre_channel, channel_mult, inner, groups, use_attn))
+                    pre_channel, channel_mult, inner, groups, use_attn,
+                    cfg.dropout))
                 feat_channels.append(channel_mult)
                 pre_channel = channel_mult
             if ind != num_mults - 1:
@@ -265,8 +293,10 @@ class UNet(nn.Module):
                 now_res //= 2
         self.downs = nn.ModuleList(downs)
         self.mid = nn.ModuleList([
-            ResnetBlocWithAttn(pre_channel, pre_channel, inner, groups, True),
-            ResnetBlocWithAttn(pre_channel, pre_channel, inner, groups, False),
+            ResnetBlocWithAttn(pre_channel, pre_channel, inner, groups, True,
+                               cfg.dropout),
+            ResnetBlocWithAttn(pre_channel, pre_channel, inner, groups,
+                               False, cfg.dropout),
         ])
         ups = []
         for ind in reversed(range(num_mults)):
@@ -275,7 +305,7 @@ class UNet(nn.Module):
             for _ in range(cfg.res_blocks + 1):
                 ups.append(ResnetBlocWithAttn(
                     pre_channel + feat_channels.pop(), channel_mult, inner,
-                    groups, use_attn))
+                    groups, use_attn, cfg.dropout))
                 pre_channel = channel_mult
             if ind >= 1:
                 ups.append(Upsample(pre_channel))
@@ -284,7 +314,7 @@ class UNet(nn.Module):
         self.final_conv = Block(pre_channel, cfg.out_channel, groups=groups)
         _init_like_flax(self)
 
-    def forward(self, x, angle, noise_level):
+    def forward(self, x, angle, noise_level, dropout=None):
         inner = self.config.inner_channel
         if self.noise_level_mlp is not None:
             t = torch.cat([
@@ -296,26 +326,43 @@ class UNet(nn.Module):
             t = torch.zeros((x.shape[0], inner), dtype=self.dtype,
                             device=x.device)
 
-        def block(layer, h):
+        def block(layer, h, name):
+            args = (h, t)
+            if dropout is not None and self.dropout > 0:
+                args += (self._dropout_mask(layer, h, name, dropout),)
             if self.remat and torch.is_grad_enabled():
-                return checkpoint(layer, h, t, use_reentrant=False)
-            return layer(h, t)
+                return checkpoint(layer, *args, use_reentrant=False)
+            return layer(*args)
 
         h = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW, channels_last
         h = h.contiguous(memory_format=torch.channels_last)
         feats = []
-        for layer in self.downs:
-            h = block(layer, h) if isinstance(layer, ResnetBlocWithAttn) \
-                else layer(h)
+        for i, layer in enumerate(self.downs):
+            h = block(layer, h, f"downs.{i}") \
+                if isinstance(layer, ResnetBlocWithAttn) else layer(h)
             feats.append(h)
-        for layer in self.mid:
-            h = block(layer, h)
-        for layer in self.ups:
+        for i, layer in enumerate(self.mid):
+            h = block(layer, h, f"mid.{i}")
+        for i, layer in enumerate(self.ups):
             if isinstance(layer, ResnetBlocWithAttn):
                 h = torch.cat([h, feats.pop()], dim=1)
                 h = h.contiguous(memory_format=torch.channels_last)
-                h = block(layer, h)
+                h = block(layer, h, f"ups.{i}")
             else:
                 h = layer(h)
         out = self.final_conv(h)
         return out.permute(0, 2, 3, 1).float()
+
+    def _dropout_mask(self, layer, h, name: str, dropout) -> torch.Tensor:
+        """The keep mask of ``layer``'s dropout for its input ``h``, as the
+        NCHW view of an NHWC bool tensor: drawn from the generator
+        ``dropout``, or ``dropout[<module name>]``."""
+        name += ".res_block.block2.block.2"
+        b, _, hh, ww = h.shape
+        c = layer.res_block.block2.block[3].out_channels
+        if isinstance(dropout, torch.Generator):
+            mask = torch.rand((b, hh, ww, c), generator=dropout,
+                              device=h.device) < 1.0 - self.dropout
+        else:
+            mask = torch.as_tensor(dropout[name]).to(h.device, torch.bool)
+        return mask.permute(0, 3, 1, 2)

@@ -25,6 +25,13 @@ device; ``noise=`` feeds explicit per-step draws instead (tests feed the
 draws the JAX chain makes).  Every sampler takes ``packed_idx`` to run
 the per-step UNet on the packed (sample, view) rows.
 
+With more than one process each draws for the global batch and keeps its
+own rows: the training draws come from :meth:`ViewFusion.training_draws`
+at the global size, and a sampler's ``generator`` may be a
+:class:`RowSlice`, whose draws are made for ``total`` rows and cut to
+this process's ``[lo, lo + B)``.  So the numbers do not depend on the
+number of processes.
+
 Tensors are NHWC: y_cond (B, N, H, W, Cc), y_t (B, H, W, 3),
 view_count (B,), angle (B,).
 """
@@ -42,8 +49,8 @@ from viewfusion_tpu_torch.models.dit import DiT
 from viewfusion_tpu_torch.models.unet import UNet
 from viewfusion_tpu_torch.ops.schedules import DiffusionSchedule
 
-__all__ = ["ViewFusion", "GenerateOutput", "ChainCarry", "view_mask",
-           "ddim_timesteps", "dpm_timesteps"]
+__all__ = ["ViewFusion", "GenerateOutput", "ChainCarry", "RowSlice",
+           "view_mask", "ddim_timesteps", "dpm_timesteps"]
 
 _f32 = np.float32
 
@@ -72,6 +79,26 @@ class ChainCarry:
     weight_arr: Optional[torch.Tensor]
     frame_idx: int
     generator: Optional[torch.Generator]
+
+
+class RowSlice(NamedTuple):
+    """A sampler's generator for rows ``[lo, lo + B)`` of a batch of
+    ``total`` rows: each draw is made for all ``total`` rows from
+    ``generator`` and cut to this process's rows."""
+
+    generator: torch.Generator
+    total: int
+    lo: int
+
+
+def _randn(shape, generator, device) -> torch.Tensor:
+    """A normal draw of ``shape`` from ``generator`` (a torch.Generator,
+    a :class:`RowSlice` or None)."""
+    if isinstance(generator, RowSlice):
+        full = torch.randn((generator.total,) + tuple(shape[1:]),
+                           generator=generator.generator, device=device)
+        return full[generator.lo:generator.lo + shape[0]]
+    return torch.randn(shape, generator=generator, device=device)
 
 
 def view_mask(view_count: torch.Tensor, n_max: int) -> torch.Tensor:
@@ -159,20 +186,24 @@ class ViewFusion:
 
     # ------------------------------------------------------------------
     def _denoise_views(self, y_cond, y_target, noise_level, angle,
-                       packed_idx=None):
+                       packed_idx=None, denoiser=None, dropout=None):
         """Per-view UNet pass -> (B, N, H, W, out).
 
         Dense: all B * N rows.  Packed (``packed_idx`` = (sample_idx,
         view_idx), (R,) int64): rows gathered by (sample, view), outputs
         scattered into zeros at ``sample_idx * N + view_idx``; untouched
-        slots stay 0 and are masked by :meth:`compose`."""
+        slots stay 0 and are masked by :meth:`compose`.  ``denoiser``
+        replaces ``self.unet`` for the call (the train step's DDP and
+        view-split wrappers); ``dropout`` goes to the UNet."""
         b, n, h, w, _ = y_cond.shape
+        unet = self.unet if denoiser is None else denoiser
+        kw = {} if dropout is None else {"dropout": dropout}
         if packed_idx is not None:
             sample_idx, view_idx = packed_idx
             x = torch.cat([y_cond[sample_idx, view_idx],
                            y_target[sample_idx].to(y_cond.dtype)], dim=-1)
-            out = self.unet(x, angle.reshape(-1)[sample_idx],
-                            noise_level[sample_idx])
+            out = unet(x, angle.reshape(-1)[sample_idx],
+                       noise_level[sample_idx], **kw)
             self.unet_forwards += 1
             dense = out.new_zeros((b * n,) + out.shape[1:])
             dense = dense.index_copy(0, sample_idx * n + view_idx, out)
@@ -181,7 +212,7 @@ class ViewFusion:
         x = torch.cat([y_cond, y_rep.to(y_cond.dtype)], dim=-1)
         level_rep = noise_level[:, None].expand(b, n).reshape(-1)
         angle_rep = angle.reshape(-1)[:, None].expand(b, n).reshape(-1)
-        out = self.unet(x.reshape(b * n, h, w, -1), angle_rep, level_rep)
+        out = unet(x.reshape(b * n, h, w, -1), angle_rep, level_rep, **kw)
         self.unet_forwards += 1
         return out.reshape(b, n, h, w, -1)
 
@@ -218,18 +249,28 @@ class ViewFusion:
                                                 device=device)
         return self._gammas[key]
 
+    def _sample_gammas(self, b: int, generator, device) -> torch.Tensor:
+        """Per-sample gamma uniform in [gamma_{t-1}, gamma_t), t ~
+        U{1..T-1} (the WaveGrad continuous noise level): t, then u."""
+        t = torch.randint(1, self.schedule.num_timesteps, (b,),
+                          generator=generator, device=device)
+        table = self._gamma_table(device)
+        g1, g2 = table[t - 1], table[t]
+        u = torch.rand((b,), generator=generator, device=device)
+        return (g2 - g1) * u + g1
+
+    def training_draws(self, shape, generator, device):
+        """(noise, sample_gammas) of a training batch of images ``shape``
+        (B, H, W, 3), drawn as the losses draw them."""
+        gammas = self._sample_gammas(shape[0], generator, device)
+        return torch.randn(shape, generator=generator, device=device), gammas
+
     def _noisy_target(self, y_0, noise, sample_gammas, generator):
-        """(noise, sample_gammas, y_noisy) of a training step: gamma
-        uniform in [gamma_{t-1}, gamma_t) per sample, t ~ U{1..T-1}
-        (the WaveGrad continuous noise level)."""
+        """(noise, sample_gammas, y_noisy) of a training step (the draws
+        of :meth:`training_draws` where not given)."""
         b, dev = y_0.shape[0], y_0.device
         if sample_gammas is None:
-            t = torch.randint(1, self.schedule.num_timesteps, (b,),
-                              generator=generator, device=dev)
-            table = self._gamma_table(dev)
-            g1, g2 = table[t - 1], table[t]
-            u = torch.rand((b,), generator=generator, device=dev)
-            sample_gammas = (g2 - g1) * u + g1
+            sample_gammas = self._sample_gammas(b, generator, dev)
         if noise is None:
             noise = torch.randn(y_0.shape, generator=generator, device=dev)
         y_noisy = self.q_sample(y_0, sample_gammas[:, None, None, None],
@@ -242,27 +283,34 @@ class ViewFusion:
         return torch.mean((noise - noise_hat) ** 2)
 
     def loss(self, y_0, y_cond, view_count, angle, noise=None,
-             sample_gammas=None, generator: Optional[torch.Generator] = None):
+             sample_gammas=None, generator: Optional[torch.Generator] = None,
+             dropout=None, denoiser=None):
         """MSE between the true noise and the composed prediction, dense
         layout (JAX ``loss``).  y_0 (B, H, W, 3), y_cond (B, N, H, W, Cc),
         view_count and angle (B,); ``noise`` (B, H, W, 3) and
-        ``sample_gammas`` (B,) replace the draws."""
+        ``sample_gammas`` (B,) replace the draws.  ``dropout`` (a
+        generator or masks by name, see ``models/unet.py``) turns the
+        UNet's dropout on, as ``deterministic=False`` does in JAX."""
         noise, gammas, y_noisy = self._noisy_target(y_0, noise,
                                                     sample_gammas, generator)
-        out = self._denoise_views(y_cond, y_noisy, gammas, angle)
+        out = self._denoise_views(y_cond, y_noisy, gammas, angle,
+                                  denoiser=denoiser, dropout=dropout)
         return self._mse(out, noise, view_count)
 
     def loss_packed(self, y_0, y_cond, view_count, angle, sample_idx,
                     view_idx, noise=None, sample_gammas=None,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    denoiser=None):
         """:meth:`loss` with the UNet on exactly the sum(view_count) valid
         rows (JAX ``loss_packed``).  ``sample_idx``/``view_idx`` (R,)
         enumerate the valid (sample, view < view_count) pairs
-        (``training.trainer.packed_indices``)."""
+        (``training.trainer.packed_indices``).  Dropout stays off, as in
+        JAX, whose ``loss_packed`` runs deterministic."""
         noise, gammas, y_noisy = self._noisy_target(y_0, noise,
                                                     sample_gammas, generator)
         out = self._denoise_views(y_cond, y_noisy, gammas, angle,
-                                  packed_idx=(sample_idx, view_idx))
+                                  packed_idx=(sample_idx, view_idx),
+                                  denoiser=denoiser)
         return self._mse(out, noise, view_count)
 
     # ------------------------------------------------------------------
@@ -287,8 +335,7 @@ class ViewFusion:
     def _start(self, y_cond, view_count, angle, y_t, generator):
         b, n, h, w, _ = y_cond.shape
         if y_t is None:
-            y_t = torch.randn((b, h, w, 3), generator=generator,
-                              device=y_cond.device)
+            y_t = _randn((b, h, w, 3), generator, y_cond.device)
         # the UNet's first op casts to its dtype: casting here once gives
         # it the same values at a fraction of the per-step traffic
         return (y_cond.to(self.unet.dtype), y_t, view_mask(view_count, n),
@@ -298,8 +345,7 @@ class ViewFusion:
     def _noise(noise, i, like, generator):
         if noise is not None:
             return noise[i].to(like.device, torch.float32)
-        return torch.randn(like.shape, generator=generator,
-                           device=like.device)
+        return _randn(like.shape, generator, like.device)
 
     # ------------------------------------------------------------------
     # the reference's ancestral chain
@@ -331,8 +377,7 @@ class ViewFusion:
             y_t, y_cond, mask, angle, t, packed_idx)
         if t > 0:
             z = noise.to(mean.device, torch.float32) if noise is not None \
-                else torch.randn(mean.shape, generator=generator,
-                                 device=mean.device)
+                else _randn(mean.shape, generator, mean.device)
             mean = mean + z * float(np.exp(_f32(0.5) * log_var))
         return mean, logits, weights
 
@@ -357,7 +402,7 @@ class ViewFusion:
         dev = y_cond.device
         _, n_frames = self._frames(sample_num)
         if y_t is None:
-            y_t = torch.randn((b, h, w, 3), generator=generator, device=dev)
+            y_t = _randn((b, h, w, 3), generator, dev)
         y_t = y_t.to(dev, torch.float32)
         ret_arr = torch.zeros((n_frames + 1, b, h, w, 3), device=dev)
         ret_arr[0] = y_t

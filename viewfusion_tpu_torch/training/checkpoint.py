@@ -301,12 +301,17 @@ def _host_snapshot(tree) -> Tuple[Any, Optional[torch.cuda.Event]]:
 class Checkpoint:
     """Run-dir checkpoints (see the module docstring).  Creating one for
     a new directory makes it and writes ``config_yaml`` there as
-    ``config.yaml``."""
+    ``config.yaml``.  With more than one process only the rank built with
+    ``is_host0`` makes the directory and writes; the others' saves return
+    at once.  The state they are given must already be whole: the
+    caller gathers a partitioned state on every rank first (under ZeRO-1,
+    ``trainer_state_to_jax``), or the ranks deadlock."""
 
     def __init__(self, checkpoint_dir: str,
-                 config_yaml: Optional[str] = None):
+                 config_yaml: Optional[str] = None, is_host0: bool = True):
         self.checkpoint_dir = checkpoint_dir
-        if not os.path.exists(checkpoint_dir):
+        self.is_host0 = is_host0
+        if is_host0 and not os.path.exists(checkpoint_dir):
             os.makedirs(checkpoint_dir, exist_ok=True)
             if config_yaml is not None:
                 with open(os.path.join(checkpoint_dir, "config.yaml"),
@@ -342,6 +347,8 @@ class Checkpoint:
         """Write ``state`` (a nested dict of tensors and arrays) and the
         scalar extras; returns when the file is on disk.  Queued async
         saves are written first, so an older one never lands on top."""
+        if not self.is_host0:
+            return
         if self._queue is not None:
             self.flush()
         self._raise_worker_error()
@@ -351,6 +358,8 @@ class Checkpoint:
         """Like :meth:`save`, but returns once the host copies are queued
         on the caller's stream; the writer thread waits for them, then
         serialises and writes."""
+        if not self.is_host0:
+            return
         self._raise_worker_error()
         snap, event = _host_snapshot(state)
         if self._queue is None:

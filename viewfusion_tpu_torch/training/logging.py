@@ -32,13 +32,17 @@ def generate_run_id() -> str:
 class MetricLogger:
     def __init__(self, out_dir: str, use_wandb: bool = False,
                  run_id: Optional[str] = None, exp_name: str = "",
-                 config: Optional[Dict[str, Any]] = None):
+                 config: Optional[Dict[str, Any]] = None,
+                 is_host0: bool = True):
         self.out_dir = out_dir
         self.jsonl_path = os.path.join(out_dir, "metrics.jsonl")
         self.wandb = None
         self.run_id = run_id
-        os.makedirs(out_dir, exist_ok=True)
-        if use_wandb:
+        # with more than one process, rank 0 alone writes and talks to wandb
+        self.is_host0 = is_host0
+        if is_host0:
+            os.makedirs(out_dir, exist_ok=True)
+        if use_wandb and is_host0:
             try:
                 import wandb
             except ImportError:
@@ -71,7 +75,7 @@ class MetricLogger:
         return out
 
     def log(self, metrics: Dict[str, Any], step: int) -> None:
-        if not metrics:
+        if not metrics or not self.is_host0:
             return
         scalars = {k: (float(v) if hasattr(v, "__float__") else v)
                    for k, v in metrics.items()
@@ -86,6 +90,8 @@ class MetricLogger:
                   caption: str = "") -> None:
         """Save an (H, W, 3) uint8 or [0, 1] image as
         ``<name>-<step>.png``."""
+        if not self.is_host0:
+            return
         path = os.path.join(self.out_dir, f"{name}-{step}.png")
         save_png(image, path)
         if self.wandb is not None:
@@ -95,6 +101,8 @@ class MetricLogger:
     def log_video(self, name: str, frames, step: int,
                   duration: float = 0.1) -> None:
         """Save frames as the looping GIF ``<name>-<step>.gif``."""
+        if not self.is_host0:
+            return
         path = os.path.join(self.out_dir, f"{name}-{step}.gif")
         save_gif(frames, path, duration=duration)
         if self.wandb is not None:

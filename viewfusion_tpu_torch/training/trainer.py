@@ -19,9 +19,33 @@ parameter gradient, and makes one Adam update with optax's semantics:
     gradients divided by K (the loss likewise).
 
 Parameters stay f32 (master weights); the UNet casts them to the compute
-dtype per call.  The host helpers below are numpy copies of the JAX
-trainer's, equal bit for bit: the stratified view-count multiset, the
-packed row indices and the salted per-step counts.
+dtype per call.
+
+More than one process (``torchrun``; ``parallel/mesh.py`` says how the
+ranks form a ``data x view`` grid): each rank is given its rows of the
+global batch.  The UNet runs under ``DistributedDataParallel``
+(``broadcast_buffers=False``; every microbatch but the last of a
+``grad_accum`` step inside ``no_sync``), so the gradients are averaged
+over all ranks; ``self.model.unet`` stays the bare module, and its names
+are the ones checkpoints, the EMA and the converters see.  Every rank
+draws t, u and the noise for the global batch from ``self.generator``
+(the same seed everywhere) and keeps its rows, so a W-rank step equals
+the one-process step at the same global batch up to summation order.
+With ``tpu.mesh_view > 1`` the ranks of a view group split their data
+rank's UNet rows and gather the outputs with autograd (``_ViewSplit``);
+each composes and takes the loss of the whole slice, the gather's
+backward multiplies each rank's gradient by ``view``, and DDP's mean
+over ``data * view`` ranks leaves the mean over the data ranks.  The
+returned loss is the mean over all ranks.  ``tpu.shard_opt_state``
+partitions Adam's m and v over the data group (``parallel/zero1.py``).
+
+Dropout (``dropout > 0``) is on in the dense loss only, as in JAX, with
+masks from ``self.generator`` (one process) or a generator of the rank's
+own, seeded from it, the step and the rank (more than one).
+
+The host helpers below are numpy copies of the JAX trainer's, equal bit
+for bit: the stratified view-count multiset, the packed row indices and
+the salted per-step counts.
 
 Generation (the JAX trainer's sampler entry points) runs on the EMA
 shadow when there is one (``_infer_model``) and picks the sampler from
@@ -39,6 +63,7 @@ best-model files, and the inference modes.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import datetime
 import os
@@ -53,16 +78,25 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from viewfusion_tpu_torch.config import Config, load_config
 from viewfusion_tpu_torch.data.nmr import Batcher, create_nmr_stream, prefetch
 from viewfusion_tpu_torch.models.view_fusion import (GenerateOutput,
-                                                     ViewFusion)
+                                                     RowSlice, ViewFusion)
 from viewfusion_tpu_torch.ops.metrics import compute_psnr, compute_ssim
+from viewfusion_tpu_torch.parallel.collectives import all_gather
+from viewfusion_tpu_torch.parallel.mesh import (MeshSpec, RankGrid,
+                                                initialize_distributed,
+                                                make_mesh)
+from viewfusion_tpu_torch.parallel.zero1 import Zero1Adam
+from viewfusion_tpu_torch.training import fused_feed
 from viewfusion_tpu_torch.training.checkpoint import Checkpoint
 from viewfusion_tpu_torch.training.logging import MetricLogger
 from viewfusion_tpu_torch.training.schedulers import lr_schedule
-from viewfusion_tpu_torch.utils.convert import (load_trainer_state,
+from viewfusion_tpu_torch.utils.convert import (jax_layout_axes,
+                                                load_trainer_state,
                                                 trainer_state_to_jax)
 from viewfusion_tpu_torch.utils.image import make_grid, save_png, to_uint8
 
@@ -108,16 +142,20 @@ def packed_indices(view_count: np.ndarray):
     return sample_idx.astype(np.int32), view_idx.astype(np.int32)
 
 
-def global_packed_counts(seed: int, salt: int, batch: int, max_views: int):
+def global_packed_counts(seed: int, salt: int, batch: int, max_views: int,
+                         host_id: int = 0, num_hosts: int = 1):
     """The packed batch's view counts and row indices, a function of
-    (seed, salt) alone: the stratified multiset shuffled by a generator
-    seeded ``[seed, 0x9E37, salt]``, with salt ``it * K + k`` for
-    microbatch k of step it (single process).  Returns (counts (B,),
-    sample_idx, view_idx)."""
+    (seed, salt) alone: the stratified multiset of the global batch
+    (``batch * num_hosts`` samples) shuffled by a generator seeded
+    ``[seed, 0x9E37, salt]``, with salt ``it * K + k`` for microbatch k
+    of step it.  Returns (counts, sample_idx, view_idx) of host
+    ``host_id``'s ``batch`` samples ``[h * batch, (h + 1) * batch)``; the
+    row indices enumerate this host's samples."""
     rng = np.random.default_rng([seed, 0x9E37, salt])
-    counts = stratified_count_multiset(batch, max_views)
+    counts = stratified_count_multiset(batch * num_hosts, max_views)
     rng.shuffle(counts)
-    return (counts,) + packed_indices(counts)
+    local = counts[host_id * batch:(host_id + 1) * batch]
+    return (local,) + packed_indices(local)
 
 
 def salted_generator(seed: int, salt: int, device) -> torch.Generator:
@@ -127,6 +165,24 @@ def salted_generator(seed: int, salt: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state))
 
 
+class _ViewSplit:
+    """The denoiser on this rank's share of the view group's rows: the
+    rows, padded to a multiple of ``view`` with copies of the last, are
+    split in rank order; the outputs are gathered back, with autograd,
+    and the padding cut."""
+
+    def __init__(self, denoiser, grid: RankGrid):
+        self.denoiser, self.grid = denoiser, grid
+
+    def __call__(self, x, angle, level, **kw):
+        r, g = x.shape[0], self.grid
+        per = -(-r // g.view)
+        idx = torch.arange(g.view_rank * per, (g.view_rank + 1) * per,
+                           device=x.device).clamp_(max=r - 1)
+        out = self.denoiser(x[idx], angle[idx], level[idx], **kw)
+        return all_gather(out, g.view_group)[:r]
+
+
 class Trainer:
     """The model, its Adam state, the EMA shadow and the step count.
 
@@ -134,11 +190,15 @@ class Trainer:
     CPU the kernel wrappers run their plain versions.  The UNet starts
     from ``state_dict`` when given, else from a fresh flax-like init
     seeded by ``seed`` (default ``config.train.seed``), which also seeds
-    the generator of the training draws."""
+    the generator of the training draws.  Under an initialised process
+    group, ``mesh`` (default: the grid of ``tpu.mesh_data`` and
+    ``tpu.mesh_view``) places this rank, and ``train_step`` takes the
+    rank's rows of each batch."""
 
     def __init__(self, config: Config, device="cuda",
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None,
+                 mesh: Optional[RankGrid] = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device='cpu' "
@@ -152,12 +212,30 @@ class Trainer:
             self.model.unet.load_state_dict(state_dict)
         self.model.unet.to(device).train()
         self.config, self.device = config, device
+        self.mesh = mesh if mesh is not None else make_mesh(
+            MeshSpec(tc.mesh_data, tc.mesh_view),
+            batch_rows=config.data.batch_size // tc.grad_accum)
+        # what the train step calls: DDP (and the view split) over the
+        # bare UNet under a process group, else the UNet itself
+        self._ddp = self._denoiser = None
+        if dist.is_initialized():
+            self._ddp = self._denoiser = DistributedDataParallel(
+                self.model.unet, broadcast_buffers=False)
+            if self.mesh.view > 1:
+                self._denoiser = _ViewSplit(self._ddp, self.mesh)
         self.params = list(self.model.unet.parameters())
         self.lr_fn = lr_schedule(peak_lr=tc.peak_lr, peak_it=tc.lr_warmup,
                                  decay_rate=tc.decay_rate,
                                  decay_it=tc.decay_it)
-        self.optimizer = torch.optim.Adam(self.params, lr=0.0,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        self.zero1 = None
+        if tc.shard_opt_state:
+            named = list(self.model.unet.named_parameters())
+            self.zero1 = Zero1Adam(named, jax_layout_axes(
+                [n for n, _ in named]), self.mesh)
+            self.optimizer = self.zero1.optimizer
+        else:
+            self.optimizer = torch.optim.Adam(self.params, lr=0.0,
+                                              betas=(0.9, 0.999), eps=1e-8)
         # the EMA shadow is a second UNet, so that generation can run on
         # it (_infer_model); self.ema lists its parameters
         self.ema, self.ema_model = None, None
@@ -179,58 +257,120 @@ class Trainer:
             a = torch.from_numpy(a if a.flags.writeable else a.copy())
         return a.to(self.device)
 
-    def _microbatch_loss(self, mb: Dict[str, Any], noise, sample_gammas):
+    def _microbatch_loss(self, mb: Dict[str, Any], noise, sample_gammas,
+                         masks=None):
         put = self._put
-        args = (norm_img(put(mb["target"])), norm_img(put(mb[self.cond_key])),
-                put(mb["view_count"]).long(),
-                put(mb[self.angle_key]).float().reshape(-1))
+        mb = {k: put(v) for k, v in mb.items()}
+        if "img" in mb:  # the fused feed: slices and a same-size bitcast
+            mb = fused_feed.unpack_batch(mb)
+        target = norm_img(mb["target"])
+        args = (target, norm_img(mb[self.cond_key]),
+                mb["view_count"].long(),
+                mb[self.angle_key].float().reshape(-1))
+        mesh = self.mesh
+        if mesh.data > 1 and noise is None and sample_gammas is None:
+            # the global batch's draws, this rank's rows
+            b, lo = target.shape[0], mesh.data_rank * target.shape[0]
+            noise, sample_gammas = (d[lo:lo + b] for d in
+                                    self.model.training_draws(
+                                        (b * mesh.data,) + target.shape[1:],
+                                        self.generator, self.device))
         kw = dict(noise=None if noise is None else put(noise).float(),
                   sample_gammas=(None if sample_gammas is None
                                  else put(sample_gammas).float()),
-                  generator=self.generator)
+                  generator=self.generator, denoiser=self._denoiser)
         if self.config.train.packed_views:
             return self.model.loss_packed(
-                *args, put(mb["sample_idx"]).long(),
-                put(mb["view_idx"]).long(), **kw)
+                *args, mb["sample_idx"].long(), mb["view_idx"].long(), **kw)
+        if getattr(self.model.unet, "dropout", 0.0) > 0:
+            kw["dropout"] = masks if masks is not None else self._dropout_gen
         return self.model.loss(*args, **kw)
 
     def train_step(self, batch: Dict[str, Any], noise=None,
-                   sample_gammas=None) -> torch.Tensor:
+                   sample_gammas=None, masks=None) -> torch.Tensor:
         """One optimizer update on ``batch`` (see the module docstring).
         ``noise`` (B, H, W, 3) and ``sample_gammas`` (B,), with the same
         leading K axis as the batch under grad accumulation, replace the
-        training draws.  Returns the (mean) loss, a detached f32 scalar
-        on the device."""
+        training draws; ``masks`` (by module name, see
+        ``models/unet.py``) replaces the dense loss's dropout draws.
+        Under grad accumulation a batch value may also be a list of the
+        K microbatches' arrays (packed rows differ in length between a
+        rank's microbatches).  Returns the (mean) loss over all ranks, a
+        detached f32 scalar on the device."""
         n_micro = self.config.train.grad_accum
-        self.optimizer.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
+        self._dropout_gen = self.generator
+        if self.mesh.world > 1 and getattr(self.model.unet, "dropout", 0) > 0:
+            state = np.random.SeedSequence([self.generator.initial_seed(),
+                                            self.step, self.mesh.rank])
+            self._dropout_gen = torch.Generator(device=self.device)
+            self._dropout_gen.manual_seed(int(state.generate_state(1)[0]))
         total = None
         for k in range(n_micro):
             pick = (lambda a: a) if n_micro == 1 else \
                 (lambda a: None if a is None else a[k])
-            loss = self._microbatch_loss(
-                {key: pick(v) for key, v in batch.items()}, pick(noise),
-                pick(sample_gammas))
-            loss.backward()
+            last = k == n_micro - 1
+            with (self._ddp.no_sync() if self._ddp is not None and not last
+                  else contextlib.nullcontext()):
+                loss = self._microbatch_loss(
+                    {key: pick(v) for key, v in batch.items()}, pick(noise),
+                    pick(sample_gammas), pick(masks))
+                loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
         if n_micro > 1:
             for p in self.params:
                 p.grad.div_(n_micro)
+            total = total / n_micro
         self.apply_update()
-        return total / n_micro if n_micro > 1 else total
+        if self.mesh.world > 1:
+            dist.all_reduce(total)
+            total /= self.mesh.world
+        return total
 
     @torch.no_grad()
     def apply_update(self) -> None:
         """One Adam update (and EMA) from the gradients in ``.grad``."""
         lr = self.lr_fn(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
+        if self.zero1 is not None:
+            self.zero1.step(lr)
+        else:
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
         if self.ema is not None:
             decay = self.config.train.ema_decay
             torch._foreach_mul_(self.ema, decay)
             torch._foreach_add_(self.ema,
                                 torch._foreach_mul(self.params, 1.0 - decay))
         self.step += 1
+
+    def adam_moments(self):
+        """Adam's m and v, whole, by parameter name: (exp_avg, exp_avg_sq)
+        dicts, zeros before the first update.  Under ZeRO-1 they are
+        gathered over the data group: every rank must call it."""
+        if self.zero1 is not None:
+            return self.zero1.full_moments()
+        st = self.optimizer.state
+        named = list(self.model.unet.named_parameters())
+        return tuple({n: st[p][key] if p in st else torch.zeros_like(p)
+                      for n, p in named} for key in ("exp_avg", "exp_avg_sq"))
+
+    @torch.no_grad()
+    def load_adam_moments(self, count: int, mu: Dict[str, torch.Tensor],
+                          nu: Dict[str, torch.Tensor]) -> None:
+        """Set Adam's state to whole m and v after ``count`` updates (a
+        fresh state at 0); under ZeRO-1 this rank keeps its slices."""
+        if self.zero1 is not None:
+            self.zero1.load_moments(count, mu, nu)
+            return
+        st = self.optimizer.state
+        st.clear()
+        if count > 0:
+            for name, p in self.model.unet.named_parameters():
+                st[p] = {"step": torch.tensor(float(count)),
+                         "exp_avg": mu[name].to(p.device),
+                         "exp_avg_sq": nu[name].to(p.device)}
 
     # ------------------------------------------------------------------
     # generation (the JAX trainer's sampler entry points)
@@ -352,24 +492,12 @@ class ExperimentArgs:
     device: str = "cuda"
 
 
-def _refuse_unported(cfg: Config) -> None:
-    """Knobs of the JAX Experiment that the port does not take yet."""
-    tc = cfg.train
-    refused = []
-    if tc.fused_feed:
-        refused.append("tpu.fused_feed")
-    if tc.shard_opt_state:
-        refused.append("tpu.shard_opt_state")
-    if tc.mesh_data > 1 or tc.mesh_view > 1:
-        refused.append(f"tpu.mesh_data={tc.mesh_data} / "
-                       f"tpu.mesh_view={tc.mesh_view}")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        refused.append("more than one process (WORLD_SIZE="
-                       f"{os.environ['WORLD_SIZE']})")
-    if refused:
-        raise NotImplementedError(
-            f"{', '.join(refused)}: not ported yet (ROADMAP.md, queue 1); "
-            "the port's experiment loop runs one process on one device")
+def _stack(micro: List[Dict[str, np.ndarray]]) -> Dict[str, Any]:
+    """K microbatches on a leading axis; a key whose arrays differ in
+    shape (a rank's packed rows) stays a list of the K arrays."""
+    return {k: (np.stack([m[k] for m in micro])
+                if len({m[k].shape for m in micro}) == 1
+                else [m[k] for m in micro]) for k in micro[0]}
 
 
 class Experiment:
@@ -383,13 +511,21 @@ class Experiment:
     either package continues the other's run.  ``-t``/``-r`` load
     ``model.msgpack``, ``-e``/``-i`` load ``best_model_all.msgpack``.
 
-    Single process, one device: the JAX mesh, ZeRO-1 and the fused feed
-    are refused (:func:`_refuse_unported`)."""
+    More than one process (``torchrun``): the ranks form the trainer's
+    ``data x view`` grid.  Rank 0 names the run dir and alone writes
+    files and talks to wandb; each data rank reads its ``1 / data`` of
+    the shards and trains on ``batch_size // data`` samples; the eval
+    sums are added over the data group; the vis grid and the ``-i``
+    modes run on rank 0 while the others wait; a SIGTERM on any rank
+    stops every rank at the same step.  Every collective is issued from
+    the main thread, in the same order on every rank."""
 
     def __init__(self, args, log_root: str = "./logs"):
         self.args = args
         self.log_dict: Dict[str, Any] = {}
-        if args.inference or args.resume or args.eval:
+        device = initialize_distributed(args.device)
+        new_run = not (args.inference or args.resume or args.eval)
+        if not new_run:
             if args.src is None:
                 raise ValueError(
                     "Source directory (-s, --src) must be provided.")
@@ -397,17 +533,29 @@ class Experiment:
             exp_name = os.path.basename(os.path.normpath(args.src))
             self.config = load_config(os.path.join(args.src, "config.yaml"))
         else:
-            config_name = os.path.splitext(os.path.basename(args.config))[0]
-            now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
-            exp_name = "-".join((now, config_name))
-            self.out_dir = os.path.join(log_root, exp_name)
             self.config = load_config(args.config)
-        self.exp_name = exp_name
         cfg = self.config
-        _refuse_unported(cfg)
-        self.rng = np.random.default_rng(cfg.train.seed)
-        self.trainer = Trainer(cfg, device=args.device)
+        if cfg.train.fused_feed and (not cfg.train.packed_views
+                                     or cfg.relative):
+            raise ValueError(
+                "tpu.fused_feed requires tpu.packed_views and absolute "
+                "conditioning (training/fused_feed.py)")
+        self.trainer = Trainer(cfg, device=device)
         self.device = self.trainer.device
+        self.mesh = mesh = self.trainer.mesh
+        self.is_host0 = mesh.is_host0
+        if new_run:  # rank 0's clock names the run dir
+            now = [datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")]
+            if mesh.world > 1:
+                dist.broadcast_object_list(now, src=0,
+                                           group=mesh.host_group)
+            config_name = os.path.splitext(os.path.basename(args.config))[0]
+            exp_name = "-".join((now[0], config_name))
+            self.out_dir = os.path.join(log_root, exp_name)
+        self.exp_name = exp_name
+        # as JAX seeds with seed + process_index: the ranks of one view
+        # group share their data rank's draws
+        self.rng = np.random.default_rng(cfg.train.seed + mesh.data_rank)
         self.max_views = cfg.data.max_views
         self.relative = cfg.relative
         self.cond_key = self.trainer.cond_key
@@ -421,13 +569,14 @@ class Experiment:
         self._init_dataloaders()
         self.logger = MetricLogger(self.out_dir, use_wandb=args.wandb,
                                    run_id=self.run_id, exp_name=exp_name,
-                                   config=cfg.raw)
+                                   config=cfg.raw, is_host0=self.is_host0)
         self.run_id = self.logger.run_id
 
     # ------------------------------------------------------------------
     def _init_model(self) -> None:
         cfg = self.config
-        self.checkpoint = Checkpoint(self.out_dir, config_yaml=cfg.to_yaml())
+        self.checkpoint = Checkpoint(self.out_dir, config_yaml=cfg.to_yaml(),
+                                     is_host0=self.is_host0)
         if self.args.train or self.args.resume:
             ckpt_name = "model.msgpack"
         else:
@@ -451,7 +600,8 @@ class Experiment:
                 # reading a run saved without EMA): params alone, with a
                 # fresh optimizer state, as the JAX Experiment does
                 load_trainer_state(self.trainer, state, ["params"])
-            print(f"Loaded checkpoint {ckpt_name}.")
+            if self.is_host0:
+                print(f"Loaded checkpoint {ckpt_name}.")
         self.it = load_dict.get("it", -1)
         self.time_elapsed = load_dict.get("t", 0.0)
         self.run_id = load_dict.get("run_id", None)
@@ -460,7 +610,8 @@ class Experiment:
 
     def _save_ckpt(self, filename: str, **extra) -> None:
         """Save the trainer's state, through the async writer unless
-        ``tpu.async_checkpoint`` is off."""
+        ``tpu.async_checkpoint`` is off.  Every rank calls it: the state
+        is gathered whole (ZeRO-1) before rank 0 alone writes."""
         state = trainer_state_to_jax(self.trainer)
         if self.config.train.async_checkpoint:
             self.checkpoint.save_async(filename, state, **extra)
@@ -469,21 +620,26 @@ class Experiment:
 
     # ------------------------------------------------------------------
     def _init_dataloaders(self) -> None:
-        cfg = self.config
-        self.local_batch_size = cfg.data.batch_size
+        cfg, mesh = self.config, self.mesh
+        # each data rank reads 1/data of the shards and its rows of the
+        # batch; the ranks of a view group read the same
+        hosts = dict(host_id=mesh.data_rank, num_hosts=mesh.data)
+        self.local_batch_size = cfg.data.batch_size // mesh.data
         n_micro = cfg.train.grad_accum
         if self.local_batch_size % n_micro:
             raise ValueError(
-                f"tpu.grad_accum={n_micro} must divide the batch "
-                f"{self.local_batch_size} (data.batch_size)")
+                f"tpu.grad_accum={n_micro} must divide the per-rank "
+                f"batch {self.local_batch_size} "
+                f"(data.batch_size // {mesh.data} data ranks)")
         self.micro_batch_size = self.local_batch_size // n_micro
         seed = cfg.train.seed
         native_threads = cfg.train.native_threads
         if ("native_threads" not in cfg.raw.get("tpu", {})
                 and cfg.data.num_workers > 1):
             native_threads = cfg.data.num_workers
-            print(f"data.num_workers={cfg.data.num_workers} -> "
-                  f"{native_threads} native decode threads")
+            if self.is_host0:
+                print(f"data.num_workers={cfg.data.num_workers} -> "
+                        f"{native_threads} native decode threads")
         out_dtype = np.uint8 if cfg.train.u8_feed else np.float32
         keys = ["target", self.cond_key, self.angle_key]
 
@@ -491,7 +647,7 @@ class Experiment:
         self.train_stream = None
         if self.args.train:
             self.train_stream = create_nmr_stream(
-                cfg.data.train, shuffle_buffer=1000, seed=seed,
+                cfg.data.train, shuffle_buffer=1000, seed=seed, **hosts,
                 resample=True, relative=self.relative,
                 native=cfg.train.native_loader,
                 native_threads=native_threads, needed_keys=keys,
@@ -503,10 +659,15 @@ class Experiment:
 
         self.epoch_size = max(1, cfg.data.test.size // self.local_batch_size)
         exact = cfg.train.eval_exact_epoch
+        if exact and mesh.data > 1:
+            raise ValueError(
+                "tpu.eval_exact_epoch requires a single process: per-host "
+                "shard subsets drain at different batch counts, which "
+                "would deadlock the global-array eval collectives")
 
         def val_loader():
             stream = create_nmr_stream(
-                cfg.data.test, shuffle_buffer=0, seed=seed + 1,
+                cfg.data.test, shuffle_buffer=0, seed=seed + 1, **hosts,
                 resample=not exact, relative=self.relative,
                 native=cfg.train.native_loader,
                 native_threads=native_threads, needed_keys=keys,
@@ -527,7 +688,7 @@ class Experiment:
         if cfg.train.eval_train_split and self.args.train:
             def train_eval_loader():
                 stream = create_nmr_stream(
-                    cfg.data.train, shuffle_buffer=0, seed=seed + 3,
+                    cfg.data.train, shuffle_buffer=0, seed=seed + 3, **hosts,
                     resample=True, relative=self.relative,
                     process_mode="test", native=cfg.train.native_loader,
                     native_threads=native_threads, needed_keys=keys,
@@ -547,8 +708,8 @@ class Experiment:
 
     # ------------------------------------------------------------------
     def _host_prep(self, batch: Dict[str, np.ndarray],
-                   view_count: np.ndarray, packed_idx=None
-                   ) -> Dict[str, np.ndarray]:
+                   view_count: np.ndarray, packed_idx=None,
+                   fused: bool = False) -> Dict[str, np.ndarray]:
         prepped = {
             "target": batch["target"],
             self.cond_key: batch[self.cond_key],
@@ -559,31 +720,37 @@ class Experiment:
             prepped["eval_mask"] = batch["eval_mask"]
         if packed_idx is not None:
             prepped["sample_idx"], prepped["view_idx"] = packed_idx
+        if fused:  # 3 host-to-device copies instead of 6 (tpu.fused_feed)
+            prepped = fused_feed.pack_batch(prepped)
         return prepped
 
     def _to_device(self, host: Dict[str, np.ndarray],
                    stream=None) -> Dict[str, torch.Tensor]:
         """Host batch -> tensors on the device: pinned copies sent with
         non-blocking copies on ``stream`` (the current stream if None)."""
-        out = {}
-        for k, v in host.items():
+        def put(v):
             t = torch.from_numpy(np.ascontiguousarray(v))
             if self.device.type == "cuda":
                 with torch.cuda.stream(stream or
                                        torch.cuda.current_stream()):
                     t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
-        return out
+            return t
+
+        return {k: [put(a) for a in v] if isinstance(v, list) else put(v)
+                for k, v in host.items()}
 
     def _sample_view_count(self, n: int) -> np.ndarray:
         """view_count ~ U{1..max_views} per sample."""
         return self.rng.integers(1, self.max_views + 1, (n,))
 
     def _packed_counts(self, salt: int, batch: Optional[int] = None):
+        """This data rank's counts of the global packed batch of salt
+        ``salt`` (``batch`` samples per rank, default the per-rank
+        batch) and its own packed rows."""
         return global_packed_counts(
             self.config.train.seed, salt,
             self.local_batch_size if batch is None else batch,
-            self.max_views)
+            self.max_views, self.mesh.data_rank, self.mesh.data)
 
     def _device_feed(self, first_it: int, depth: int = 2):
         """Packed path: a thread derives each step's view counts (a
@@ -595,6 +762,7 @@ class Experiment:
         cuda = self.device.type == "cuda"
         side = torch.cuda.Stream(self.device) if cuda else None
         n_micro = self.config.train.grad_accum
+        fused = self.config.train.fused_feed
 
         def worker():
             it = first_it
@@ -603,11 +771,11 @@ class Experiment:
                 for batch in self.train_loader:
                     vc, si, vi = self._packed_counts(
                         it * n_micro + len(micro), self.micro_batch_size)
-                    micro.append(self._host_prep(batch, vc, (si, vi)))
+                    micro.append(self._host_prep(batch, vc, (si, vi),
+                                                 fused=fused))
                     if len(micro) < n_micro:
                         continue
-                    host = micro[0] if n_micro == 1 else {
-                        k: np.stack([m[k] for m in micro]) for k in micro[0]}
+                    host = micro[0] if n_micro == 1 else _stack(micro)
                     dev = self._to_device(host, side)
                     event = None
                     if cuda:
@@ -632,8 +800,9 @@ class Experiment:
             if event is not None:
                 main = torch.cuda.current_stream(self.device)
                 main.wait_event(event)
-                for t in batch.values():  # freed only after main's use
-                    t.record_stream(main)
+                for v in batch.values():  # freed only after main's use
+                    for t in (v if isinstance(v, list) else [v]):
+                        t.record_stream(main)
             yield batch
 
     # ------------------------------------------------------------------
@@ -669,7 +838,7 @@ class Experiment:
         """Start or stop ``torch.profiler`` at ``tpu.profile_from`` and
         ``profile_from + profile_steps``; the trace goes to
         ``<run>/profile``."""
-        if cfg.profile_steps <= 0:
+        if cfg.profile_steps <= 0 or not self.is_host0:
             return
         if self.it == cfg.profile_from:
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -692,6 +861,21 @@ class Experiment:
             self._prof = None
             print(f"Profiler trace written to {path}")
 
+    def _stop_agreed(self) -> bool:
+        """Whether any rank got SIGTERM: one all_reduce(MAX) of the flag
+        on the host group per step, so every rank stops (and gathers the
+        stop save) at the same step."""
+        if self.mesh.world == 1:
+            return self._stop_requested
+        flag = torch.tensor([int(self._stop_requested)])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                        group=self.mesh.host_group)
+        return bool(flag.item())
+
+    def _barrier(self) -> None:
+        if self.mesh.world > 1:
+            dist.barrier(group=self.mesh.host_group)
+
     def _train_loop(self, cfg) -> None:
         acc_loss: List[torch.Tensor] = []
         last_log = [time.perf_counter(), self.it]
@@ -707,7 +891,7 @@ class Experiment:
                     "run_id": self.run_id,
                     **{k: float(v) for k, v in self.best_metrics.items()}}
                 self._checkpoint_extra = checkpoint_extra
-                if self._stop_requested:
+                if self._stop_agreed():
                     print("SIGTERM received: checkpointing and exiting.")
                     self._save_ckpt("model.msgpack", **{
                         **checkpoint_extra, "it": self.it - 1})
@@ -778,8 +962,10 @@ class Experiment:
     def _eval_pass(self, loader, salt_base: int, dump: bool,
                    key_base: int = 0):
         """One metric pass over ``loader``: full generation, then masked
-        SSIM/PSNR sums.  Returns (ssim, psnr, sample_count)."""
-        tc = self.config.train
+        SSIM/PSNR sums, added over the data group.  Each rank draws the
+        chain's noise for the global batch and keeps its rows.  Returns
+        (ssim, psnr, sample_count)."""
+        tc, mesh = self.config.train, self.mesh
         ssims, psnrs, weights = [], [], []
         packed = tc.packed_views and not tc.eval_iid_counts
         for val_batch in loader():
@@ -792,6 +978,9 @@ class Experiment:
                     val_batch["target"].shape[0]))
             batch = self._to_device(host)
             gen = salted_generator(tc.seed + 17, key_base + k, self.device)
+            if mesh.data > 1:
+                b = val_batch["target"].shape[0]
+                gen = RowSlice(gen, b * mesh.data, mesh.data_rank * b)
             with torch.no_grad():
                 out = self.trainer._eval_samples(gen, batch)
                 target = norm_img(batch["target"])
@@ -801,13 +990,19 @@ class Experiment:
                 ssims.append(torch.sum(compute_ssim(out, target) * mask))
                 psnrs.append(torch.sum(compute_psnr(out, target) * mask))
                 weights.append(torch.sum(mask))
-            if dump and tc.eval_dump_images:
-                self._dump_eval_images(out, target, k,
-                                       mask=mask.cpu().numpy())
-        count = float(torch.stack(weights).sum())
-        ssim = float(torch.stack(ssims).sum() / count)
-        psnr = float(torch.stack(psnrs).sum() / count)
-        return ssim, psnr, count
+            if dump and tc.eval_dump_images and self.is_host0:
+                if mesh.world > 1:
+                    print("eval_dump_images skipped: arrays span "
+                          "non-addressable devices on multi-host")
+                else:
+                    self._dump_eval_images(out, target, k,
+                                           mask=mask.cpu().numpy())
+        sums = torch.stack([torch.stack(v).sum()
+                            for v in (ssims, psnrs, weights)])
+        if mesh.data_group is not None:
+            dist.all_reduce(sums, group=mesh.data_group)
+        ssim, psnr = (sums[:2] / sums[2]).tolist()
+        return ssim, psnr, float(sums[2])
 
     def eval(self) -> None:
         """Full-generation metric eval and the best-model files."""
@@ -873,10 +1068,12 @@ class Experiment:
         elif self.args.inference:
             if self.args.extrapolate:
                 self.extrapolate()
-            if self.args.autoregressive:
-                self.autoregressive()
-            if self.args.generate_gifs:
-                self.generate_gif()
+            if self.is_host0:  # one rank generates; the rest wait
+                if self.args.autoregressive:
+                    self.autoregressive()
+                if self.args.generate_gifs:
+                    self.generate_gif()
+            self._barrier()
         self.logger.log(self.log_dict, max(self.it, 0))
         self.log_dict = {}
 
@@ -901,9 +1098,13 @@ class Experiment:
         cond = batch[self.cond_key][:, :self.max_views]
         angle = np.asarray(batch[self.angle_key]).reshape(-1)
         target = batch["target"]
+        # every rank draws, so the ranks of a view group keep one stream
         view_count = self._sample_view_count(target.shape[0])
-        out = self.trainer._generate_np(cond, view_count, angle)
-        self._grid_output(out.ret_arr, target, cond, view_count, "output")
+        if self.is_host0:
+            out = self.trainer._generate_np(cond, view_count, angle)
+            self._grid_output(out.ret_arr, target, cond, view_count,
+                              "output")
+        self._barrier()
 
     def extrapolate(self) -> None:
         """view_count ~ U{max_views+1 .. 23}: more views than training."""
@@ -913,9 +1114,11 @@ class Experiment:
         angle = np.asarray(batch["angle"]).reshape(-1)
         view_count = self._sample_extrapolate_counts(target.shape[0],
                                                      cond.shape[1])
-        out = self.trainer._generate_np(cond, view_count, angle, key_salt=1)
-        self._grid_output(out.ret_arr, target, cond, view_count,
-                          "extrapolate")
+        if self.is_host0:
+            out = self.trainer._generate_np(cond, view_count, angle,
+                                            key_salt=1)
+            self._grid_output(out.ret_arr, target, cond, view_count,
+                              "extrapolate")
 
     def _sample_extrapolate_counts(self, n: int, total: int) -> np.ndarray:
         """U{max_views+1 .. total}, ``total`` the stored cond views."""

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 __all__ = ["unet_state_dict_from_jax", "unet_params_to_jax",
-           "trainer_state_to_jax", "load_trainer_state"]
+           "trainer_state_to_jax", "load_trainer_state", "jax_layout_axes"]
 
 # kind -> ((torch suffix, JAX leaf, torch->JAX axes), ...)
 _LEAVES = {
@@ -135,6 +135,16 @@ def _map_entries(keys, jax_side: bool) -> List[_Entry]:
         return _dit_entries(max(blocks) + 1 if blocks else 0)
     return _entries(*(_jax_structure(keys) if jax_side
                       else _torch_structure(keys)))
+
+
+def jax_layout_axes(names) -> Dict[str, Optional[Tuple[int, ...]]]:
+    """Per ``state_dict`` name, the axes that permute the port's tensor
+    into its JAX leaf (None: the same layout)."""
+    out: Dict[str, Optional[Tuple[int, ...]]] = {}
+    for prefix, _, kind, _ in _map_entries(names, jax_side=False):
+        for t_leaf, _, axes in _LEAVES[kind]:
+            out[f"{prefix}.{t_leaf}"] = axes
+    return out
 
 
 def _get(tree, path):
@@ -243,16 +253,13 @@ def trainer_state_to_jax(trainer) -> Dict[str, Any]:
     """The ``Trainer``'s state as the JAX ``TrainState`` state dict.  Its
     leaves are torch tensors on the trainer's device, in the JAX layout
     (possibly transposed views); the checkpoint writer copies them to
-    the host."""
+    the host.  Under ZeRO-1 the moments are gathered whole over the data
+    group, so every rank must call it."""
     named = _named_params(trainer)
     as_is = (lambda t: t.detach())
     params = {"params": _torch_to_jax_tree(named, as_is)}
-    moments = []
-    for key in ("exp_avg", "exp_avg_sq"):
-        st = trainer.optimizer.state
-        moments.append({"params": _torch_to_jax_tree(
-            {n: st[p][key] if p in st else torch.zeros_like(p)
-             for n, p in named.items()}, as_is)})
+    moments = [{"params": _torch_to_jax_tree(m, as_is)}
+               for m in trainer.adam_moments()]
     ema: Dict[str, Any] = {}
     if trainer.ema is not None:
         ema = {"params": _torch_to_jax_tree(
@@ -302,17 +309,11 @@ def load_trainer_state(trainer, state: Dict[str, Any],
         adam = state["opt_state"]["0"]
         count = int(np.asarray(adam["count"]))
         mu, nu = torch_tree(adam["mu"]), torch_tree(adam["nu"])
-        st = trainer.optimizer.state
         for name, p in named.items():
             for key, src in (("exp_avg", mu), ("exp_avg_sq", nu)):
                 if tuple(src[name].shape) != tuple(p.shape):
                     raise ValueError(f"opt_state {key} {name}: shape "
                                      f"{tuple(src[name].shape)} in the file")
-        st.clear()
-        if count > 0:
-            for name, p in named.items():
-                st[p] = {"step": torch.tensor(float(count)),
-                         "exp_avg": mu[name].to(p.device),
-                         "exp_avg_sq": nu[name].to(p.device)}
+        trainer.load_adam_moments(count, mu, nu)
     if "step" in fields:
         trainer.step = int(np.asarray(state["step"]))

@@ -123,6 +123,21 @@ Phases (any failure raises and exits non-zero without the final line):
      K1-K3 are held against their plain versions at every per-rank row
      count.  A rank that fails, hangs past its timeout or disagrees
      fails the phase.
+ 25. the published-weights path, the ninth: phase 5's weights saved as
+     the reference's best_model_all.pt (denoise_fn.* beside the schedule
+     buffers of T = 2000, Adam moments, an int it, a numpy-float ssim and
+     a 0-d tensor psnr), converted by ``python -m
+     viewfusion_tpu_torch.utils.torch_convert`` in a fresh interpreter
+     with a config from configs/small-tpu-4.yaml (published widths, no
+     EMA, an eval of two batches of 112 at DDIM 20 on synthetic 64 px
+     shards); the run dir's f32 weights equal phase 5's bit for bit;
+     ViewFusionService on the run dir serves two requests, one a batch
+     (DDIM 50), equal bit for bit to a service on the unconverted
+     weights fed the same requests, then 24 requests (three full
+     batches) timed; then ``cli.main(["-s", run dir, "-e"])``; exactly
+     69 K1 and 8 K3 launches per UNet forward over the service and the
+     eval, and K1 and K3 held against their plain versions at every row
+     count those forwards ran at (the eval's 392 packed rows too).
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 
@@ -155,7 +170,11 @@ whose ZeRO-1 slices did not arrive would be near 1), and the ranks'
 parameters equal bit for bit.  LPIPS card
 against CPU within 1e-4 relative (f32 sums over 13 conv layers in another
 order, TF32 off); compute_metrics PSNR within 1e-6 relative, SSIM within
-1e-6, LPIPS within 1e-4 relative.
+1e-6, LPIPS within 1e-4 relative.  Phase 25: the converted run dir's
+f32 weights equal the .pt's bit for bit, and so do its served images the
+unconverted weights' (the same requests and seeds on one card); K1 and
+K3 at the path's row counts (the eval's packed rows too) within the
+bounds above.
 """
 
 from __future__ import annotations
@@ -173,6 +192,7 @@ import threading
 import time
 import urllib.request
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -202,6 +222,7 @@ from viewfusion_tpu_torch.data.tario import iter_tar_samples
 from viewfusion_tpu_torch.models import dit as dit_module
 from viewfusion_tpu_torch.models.dit import DiT
 from viewfusion_tpu_torch.ops.lpips import load_lpips
+from viewfusion_tpu_torch.ops.schedules import DiffusionSchedule
 from viewfusion_tpu_torch.parallel.mesh import (initialize_distributed,
                                                 shard_batch)
 from viewfusion_tpu_torch.serving import (ViewFusionService, make_server,
@@ -215,6 +236,7 @@ from viewfusion_tpu_torch.utils.convert import (load_trainer_state,
                                                 trainer_state_to_jax,
                                                 unet_state_dict_from_jax)
 from viewfusion_tpu_torch.utils.png import decode_png, encode_png
+from viewfusion_tpu_torch.utils.torch_convert import SCHEDULE_BUFFERS
 
 # configs/small-tpu-4.yaml, the fields the serving path reads (kept in
 # code: the card's machine may have no PyYAML)
@@ -2185,13 +2207,10 @@ def _child_steps(ref_dir: str) -> dict:
     return out
 
 
-def rank_child(argv: list) -> int:
-    """A rank of a torchrun launch (``--rank-child cli <cli argv>`` or
-    ``--rank-child steps <reference dir>``): runs it with the kernels'
-    counters at 0 and the UNet's row counts recorded, then prints one
-    ``CHILD {json}`` line."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+@contextlib.contextmanager
+def unet_rows():
+    """Count the UNet forwards by (rows, grad enabled) while the block
+    runs."""
     rows = Counter()
     forward = UNet.forward
 
@@ -2200,11 +2219,25 @@ def rank_child(argv: list) -> int:
         return forward(self, x, *a, **kw)
 
     UNet.forward = counted
+    try:
+        yield rows
+    finally:
+        UNet.forward = forward
+
+
+def rank_child(argv: list) -> int:
+    """A rank of a torchrun launch (``--rank-child cli <cli argv>`` or
+    ``--rank-child steps <reference dir>``): runs it with the kernels'
+    counters at 0 and the UNet's row counts recorded, then prints one
+    ``CHILD {json}`` line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     group_norm_act.launches = group_norm_act_backward.launches = 0
     spatial_self_attention.launches = 0
     kind, args = argv[0], argv[1:]
-    rec = _child_cli(args) if kind == "cli" else {"cases": _child_steps(
-        args[0])}
+    with unet_rows() as rows:
+        rec = _child_cli(args) if kind == "cli" else {"cases": _child_steps(
+            args[0])}
     torch.cuda.synchronize()
     rec.update(rank=dist.get_rank(), world=dist.get_world_size(),
                backend=dist.get_backend(),
@@ -2219,10 +2252,12 @@ def rank_child(argv: list) -> int:
     return 0
 
 
-def check_rank_rows(rows: dict, groups: int, device) -> dict:
-    """K1 and K3 at every per-rank row count the ranks' UNets ran at, K2
-    at the training ones, each against its plain version at every site
-    of the paper UNet (untimed).  Returns the largest errors."""
+def check_rank_rows(rows: dict, groups: int, device,
+                    whose: str = "the ranks'") -> dict:
+    """K1 and K3 at every row count ``rows`` holds (the per-rank counts
+    the ranks' UNets ran at, or those of one path), K2 at the training
+    ones, each against its plain version at every site of the paper UNet
+    (untimed).  Returns the largest errors."""
     unet = paper_unet(device)
     errs = {"k1": 0.0, "k2": 0.0, "k3": 0.0}
     for r in sorted(rows):
@@ -2238,7 +2273,7 @@ def check_rank_rows(rows: dict, groups: int, device) -> dict:
                     rows=r)["max_abs_err"]
         for k, v in e.items():
             errs[k] = max(errs[k], v)
-        say(f"  K1/K2/K3 at the ranks' {r} rows "
+        say(f"  K1/K2/K3 at {whose} {r} rows "
             f"({'training' if rows[r] else 'no grad'}) against their plain "
             "versions at every site: "
             + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
@@ -2475,6 +2510,171 @@ def run_mp_phases(device, k1_sites: int, k3_sites: int, loop_ms: float,
         tmp.cleanup()
 
 
+# ----------------------------------------------------------------------
+# phase 25: the published-weights path
+# ----------------------------------------------------------------------
+PRETRAINED_IT = 1_234_000
+PRETRAINED_OBJECTS = 32   # test split: 4 shards of 8 at 64 px
+PRETRAINED_EVAL_BATCHES = 2
+PRETRAINED_REQUESTS = 3 * BATCH   # three full batches, as phase 18 serves
+
+
+def reference_payload(state_dict: dict, cfg: Config) -> dict:
+    """A checkpoint in the layout of the reference's ``best_model_all.pt``
+    (utils/checkpoint.py: the model's and the optimizer's state_dicts and
+    the scalars) holding ``state_dict`` as its UNet: the ViewFusion's
+    schedule buffers beside ``denoise_fn.*``, torch Adam moments of the
+    parameters' shapes, an int ``it``, a numpy-float ``ssim`` and a 0-d
+    tensor ``psnr``."""
+    model = {f"denoise_fn.{k}": v for k, v in state_dict.items()}
+    sched = DiffusionSchedule.create(cfg.diffusion.phases["train"])
+    for name in SCHEDULE_BUFFERS:
+        model[name] = torch.from_numpy(getattr(sched, name))
+    g = torch.Generator().manual_seed(SEED + 25)
+    params = list(state_dict.values())
+    state = {i: {"step": torch.tensor(float(PRETRAINED_IT)),
+                 "exp_avg": 1e-4 * torch.randn(p.shape, generator=g),
+                 "exp_avg_sq": 1e-8 * torch.rand(p.shape, generator=g)}
+             for i, p in enumerate(params)}
+    groups = [{"lr": 5e-5, "betas": (0.9, 0.999), "eps": 1e-8,
+               "weight_decay": 0, "amsgrad": False,
+               "params": list(range(len(params)))}]
+    return {"model": model, "optimizer": {"state": state,
+                                          "param_groups": groups},
+            "it": PRETRAINED_IT, "t": 987654.25, "run_id": "3xk9q2ab",
+            "ssim": np.float64(0.8271), "psnr": torch.tensor(23.19)}
+
+
+def run_pretrained(state_dict: dict, device, k1_sites: int,
+                   k3_sites: int, groups: int) -> dict:
+    """Phase 25: a reference-layout best_model_all.pt of the paper UNet's
+    weights, converted by ``python -m viewfusion_tpu_torch.utils.
+    torch_convert`` into a run dir, served (bit for bit as a service on
+    the unconverted weights, then three full batches timed) and evaluated
+    by ``cli -s <run dir> -e``.  Returns the K1 and K3 launches of the
+    converted run dir's service and eval, and the kernels' largest errors
+    against their plain versions at the row counts those UNet forwards
+    ran at."""
+    tmp = tempfile.TemporaryDirectory(prefix="vf-phase25-")
+    try:
+        data = os.path.join(tmp.name, "data")
+        make_synthetic_shards(data, "test", num_objects=PRETRAINED_OBJECTS,
+                              num_shards=4, image_size=64, seed=25,
+                              family="shaded")
+        batch = load_config(MP_CONFIG).data.batch_size
+        cfg_path = experiment_config(
+            data, source=MP_CONFIG, phase=25, tpu__ema_decay=0.0,
+            data__params__test__params__size=PRETRAINED_EVAL_BATCHES * batch)
+        cfg = load_config(cfg_path)
+        pt = os.path.join(tmp.name, "best_model_all.pt")
+        t0 = time.perf_counter()
+        torch.save(reference_payload(state_dict, cfg), pt)
+        save_s = time.perf_counter() - t0
+        run = os.path.join(tmp.name, "pretrained")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "viewfusion_tpu_torch.utils.torch_convert",
+             pt, run, cfg_path], cwd=str(Path(__file__).resolve().parent),
+            capture_output=True, text=True, timeout=600)
+        convert_s = time.perf_counter() - t0
+        msgpack = os.path.join(run, "best_model_all.msgpack")
+        if (proc.returncode != 0
+                or proc.stdout.strip() != f"wrote {run}/best_model_all.msgpack"):
+            raise AssertionError(f"torch_convert exited {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        say(f"phase 25 on {card_line()}: reference-layout .pt "
+            f"{os.path.getsize(pt) / 1e6:.1f} MB (written in {save_s:.1f} s), "
+            f"converted in {convert_s:.1f} s (a fresh interpreter) to "
+            f"best_model_all.msgpack {os.path.getsize(msgpack) / 1e6:.1f} MB")
+
+        restored, _ = Checkpoint(run).load("best_model_all.msgpack",
+                                           {"params": None})
+        converted = unet_state_dict_from_jax(restored["params"])
+        for k, v in state_dict.items():
+            if not torch.equal(converted[k], v.cpu()):
+                raise AssertionError(f"{k}: the run dir holds other weights "
+                                     "than the .pt")
+
+        rng = np.random.default_rng(SEED + 25)
+        hw, n_max = cfg.unet.image_size, cfg.data.max_views
+        conds = [rng.uniform(0, 1, (1 + i % n_max, hw, hw, 3)).astype(
+            np.float32) for i in range(PRETRAINED_REQUESTS)]
+        angles = [0.4 * i for i in range(PRETRAINED_REQUESTS)]
+        opts = dict(batch_size=BATCH, max_wait_ms=0.0,
+                    default_steps=DDIM_STEPS, device=device)
+        # one request a batch, one after another: the same requests and
+        # seeds in both services (each seeds its n-th batch alike)
+        reference = ViewFusionService.from_state_dict(cfg, state_dict, **opts)
+        want = [reference.submit(conds[i], angles[i]) for i in range(2)]
+        del reference
+        torch.cuda.empty_cache()
+
+        group_norm_act.launches = spatial_self_attention.launches = 0
+        with unet_rows() as rows:
+            service = ViewFusionService(run, **opts)
+            for i, w in enumerate(want):
+                if not np.array_equal(service.submit(conds[i], angles[i]), w):
+                    raise AssertionError(
+                        f"request {i}: the converted run dir serves another "
+                        "image than the unconverted weights")
+            # then full batches: every request queued before a batch is cut
+            service.max_wait_ms = 60_000.0
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(PRETRAINED_REQUESTS) as pool:
+                got = list(pool.map(service.submit, conds, angles))
+            wall = time.perf_counter() - t0
+            batches = list(service.batch_log)[2:]
+            forwards = service.model.unet_forwards
+            if not all(img.shape == (hw, hw, 3) and np.isfinite(img).all()
+                       for img in got):
+                raise AssertionError("bad served image")
+            say(f"served the converted run dir: the images of 2 requests "
+                f"equal bit for bit to the service's on the unconverted "
+                f"weights; {PRETRAINED_REQUESTS} requests (DDIM "
+                f"{DDIM_STEPS}) in {wall:.2f} s = "
+                f"{PRETRAINED_REQUESTS / wall:.2f} views/s, batches "
+                + " ".join(f"{n}:{n / sec:.2f}" for _, _, n, sec in batches)
+                + " views/s")
+            del service
+            torch.cuda.empty_cache()
+
+            t0 = time.perf_counter()
+            exp = cli.main(["-s", run, "-e", "--device", str(device)])
+            eval_s = time.perf_counter() - t0
+            forwards += exp.trainer.model.unet_forwards
+            torch.cuda.synchronize()
+        last = json.loads(open(os.path.join(run, "metrics.jsonl"))
+                          .readlines()[-1])
+        if (last.get("it") != float(PRETRAINED_IT)
+                or not all(np.isfinite(last.get(k, np.nan))
+                           for k in ("ssim", "psnr"))):
+            raise AssertionError(f"-e logged {last}")
+        say(f"-e on the converted run dir: ssim {last['ssim']:.4f} psnr "
+            f"{last['psnr']:.2f} at it {last['it']} ({exp.last_eval_count:.0f}"
+            f" samples, DDIM {cfg.train.ddim_steps}) in "
+            f"{exp.eval_seconds[0]:.2f} s, {eval_s:.1f} s with the set-up")
+        del exp
+        torch.cuda.empty_cache()
+
+        launches = {"k1": group_norm_act.launches,
+                    "k3": spatial_self_attention.launches}
+        if (forwards == 0 or sum(rows.values()) != forwards
+                or launches != {"k1": k1_sites * forwards,
+                                "k3": k3_sites * forwards}):
+            raise AssertionError(
+                f"pretrained launch counters {launches} != per-forward "
+                f"sites ({k1_sites}, {k3_sites}) x {forwards} forwards")
+        say(f"launches on the pretrained path: K1 {launches['k1']}, K3 "
+            f"{launches['k3']} over {forwards} UNet forwards at "
+            + ", ".join(f"{n} x {r} rows" for (r, _), n in
+                        sorted(rows.items())))
+        errs = check_rank_rows({r: g for r, g in rows}, groups, device,
+                               whose="the pretrained path's")
+        return {"launches": launches, "errs": errs}
+    finally:
+        tmp.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
@@ -2613,6 +2813,13 @@ def main() -> int:
                        cfg.unet.norm_groups)
     for tot, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
         tot["max_abs_err"] = max(tot["max_abs_err"], mp["errs"][key])
+    torch.cuda.empty_cache()
+
+    # 25. the published-weights path: convert, serve, evaluate
+    pretrained = run_pretrained(state_dict, device, k1_calls, k3_calls,
+                                cfg.unet.norm_groups)
+    for tot, key in ((k1, "k1"), (k3, "k3")):
+        tot["max_abs_err"] = max(tot["max_abs_err"], pretrained["errs"][key])
 
     kernels = []
     for name, route_src, replaces, tot, key, per in (
@@ -2636,6 +2843,8 @@ def main() -> int:
             by_path.update(dit["launches"])
         for path, counts in mp["launches"].items():
             by_path[path] = counts[key]
+        if key in pretrained["launches"]:
+            by_path["pretrained"] = pretrained["launches"][key]
         kernels.append({
             "name": name, "route": "cuda", "source": route_src,
             "replaces": replaces, "launches": sum(by_path.values()),

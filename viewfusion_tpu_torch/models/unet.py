@@ -6,7 +6,8 @@ stacks with stride-2 Downsample, two mid blocks, skip-concat up blocks
 with nearest Upsample, final GroupNorm/SiLU/conv Block), with the
 reference repo's ``state_dict`` names (``downs.N``, ``block.0``/``block.3``,
 ``noise_level_mlp.0/2``, ``res_block``, ``attn.norm/qkv/out``), so the
-published upstream ``denoise_fn.*`` weights load directly.
+published upstream ``denoise_fn.*`` weights load with the prefix stripped
+(``utils/torch_convert.py``).
 
 Layout: the public ``UNet.forward`` takes and returns NHWC, like the JAX
 module.  Inside, tensors are NCHW in ``torch.channels_last`` memory: the

@@ -137,7 +137,22 @@ Phases (any failure raises and exits non-zero without the final line):
      batches) timed; then ``cli.main(["-s", run dir, "-e"])``; exactly
      69 K1 and 8 K3 launches per UNet forward over the service and the
      eval, and K1 and K3 held against their plain versions at every row
-     count those forwards ran at (the eval's 392 packed rows too).
+     count those forwards ran at (the eval's 392 packed rows too);
+ 26. the input formats, the tenth: tests/torch_port_formats/'s YAML 1.1
+     config (a directive, ``---``, anchors merged with ``<<``, flow
+     collections, block scalars, a folded string) read with load_config
+     equals configs/small-tpu-4.yaml's Config, written into a run dir of
+     phase 5's weights by Config.to_yaml and read back to the same tree;
+     ViewFusionService on that run dir behind make_server answers one
+     HTTP request per accepted view format (8-bit, 4-bit palette, 16-bit
+     and Adam7 PNG, baseline and progressive JPEG; three views each,
+     DDIM 20), each reply bit-equal to a second service's reply to the
+     same views sent as nested lists of the fixtures' expected arrays
+     (one request per batch in both, so seeds match); a WebP view gets
+     HTTP 400 naming WebP; exactly 69 K1 and 8 K3 launches per UNet
+     forward; each format's host decode ms per view; compute_metrics on
+     the card over the JPEG fixtures equals it over their expected arrays
+     as PNGs.
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 
@@ -174,7 +189,9 @@ order, TF32 off); compute_metrics PSNR within 1e-6 relative, SSIM within
 f32 weights equal the .pt's bit for bit, and so do its served images the
 unconverted weights' (the same requests and seeds on one card); K1 and
 K3 at the path's row counts (the eval's packed rows too) within the
-bounds above.
+bounds above.  Phase 26: every served image bit-equal to its nested-list
+twin's and compute_metrics equal (the decoders are exact, so the UNet
+sees the same inputs).
 """
 
 from __future__ import annotations
@@ -190,6 +207,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -235,6 +253,8 @@ from viewfusion_tpu_torch.training.trainer import (Trainer,
 from viewfusion_tpu_torch.utils.convert import (load_trainer_state,
                                                 trainer_state_to_jax,
                                                 unet_state_dict_from_jax)
+from viewfusion_tpu_torch.data.synthetic import render_views_shaded
+from viewfusion_tpu_torch.utils.image import decode_image
 from viewfusion_tpu_torch.utils.png import decode_png, encode_png
 from viewfusion_tpu_torch.utils.torch_convert import SCHEDULE_BUFFERS
 
@@ -1305,6 +1325,17 @@ def compare_readers(data_dir: str) -> str:
             f"{os.path.basename(shard)}")
 
 
+def _post(port: int, body: dict):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
 def serve_run_dir(run: str, device) -> int:
     """ViewFusionService on the run dir answers two base64-PNG requests
     over HTTP, from the EMA shadow; returns its UNet forwards."""
@@ -1330,14 +1361,11 @@ def serve_run_dir(run: str, device) -> int:
             views = [base64.b64encode(encode_png(rng.integers(
                 0, 256, (hw, hw, 3), dtype=np.uint8))).decode()
                 for _ in range(1 + 2 * i)]
-            req = urllib.request.Request(
-                f"http://127.0.0.1:{httpd.server_address[1]}/generate",
-                data=json.dumps({"views": views, "angle": 0.7 * i,
-                                 "steps": 20}).encode(),
-                headers={"Content-Type": "application/json"})
-            with urllib.request.urlopen(req, timeout=300) as resp:
-                img = decode_png(base64.b64decode(
-                    json.loads(resp.read())["image"]))
+            code, out = _post(httpd.server_address[1], {
+                "views": views, "angle": 0.7 * i, "steps": 20})
+            if code != 200:
+                raise AssertionError(f"HTTP {code} {out}")
+            img = decode_png(base64.b64decode(out["image"]))
             if img.shape != (hw, hw, 3):
                 raise AssertionError(f"bad served image {img.shape}")
     finally:
@@ -2675,6 +2703,137 @@ def run_pretrained(state_dict: dict, device, k1_sites: int,
         tmp.cleanup()
 
 
+# ----------------------------------------------------------------------
+# phase 26: the input formats (YAML 1.1, PNG forms, JPEG) on the served path
+# ----------------------------------------------------------------------
+FORMATS_DIR = Path(__file__).resolve().parent / "tests" / "torch_port_formats"
+FORMAT_STEPS = 20
+
+
+def run_formats(state_dict: dict, device, k1_sites: int,
+                k3_sites: int) -> dict:
+    """Phase 26 (see the module docstring).  Returns the K1 and K3
+    launches of the two services and each format's host decode ms per
+    view."""
+    t_phase = time.perf_counter()
+    cfg = load_config(str(FORMATS_DIR / "small-tpu-4-yaml11.yaml"))
+    if cfg != load_config(MP_CONFIG):
+        raise AssertionError("the YAML 1.1 fixture does not load to "
+                             "configs/small-tpu-4.yaml's Config")
+    # expected.npz holds PIL's decode of each view file, keyed
+    # <format>_<view> as the file is named
+    expected = np.load(FORMATS_DIR / "expected.npz")
+    files: dict = {}
+    for key in sorted(expected.files):
+        data = next(FORMATS_DIR.glob(key + ".*")).read_bytes()
+        if not np.array_equal(decode_image(data), expected[key]):
+            raise AssertionError(f"{key} decodes to another image than "
+                                 "Pillow's")
+        files.setdefault(key.rsplit("_", 1)[0], []).append(data)
+    decode_ms = {}  # host work: the host's clock, ten passes
+    for name, blobs in files.items():
+        t0 = time.perf_counter()
+        for _ in range(10):
+            for data in blobs:
+                decode_image(data)
+        decode_ms[name] = (time.perf_counter() - t0) * 1e3 / (10 * len(blobs))
+    say(f"phase 26 on {card_line()}: host decode ms per 64 x 64 view: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in decode_ms.items()))
+
+    tmp = tempfile.TemporaryDirectory(prefix="vf-phase26-")
+    servers = []
+    try:
+        run = os.path.join(tmp.name, "run")
+        write_run_dir(run, cfg, state_dict)
+        text = Path(run, "config.yaml").read_text()
+        if parse_yaml(text) != cfg.raw or cfg.raw["description"] in text:
+            raise AssertionError("the run dir's config.yaml does not read "
+                                 "back to the fixture's tree, folded")
+        opts = dict(batch_size=BATCH, max_wait_ms=0.0,
+                    default_steps=FORMAT_STEPS, device=device)
+        # one service takes the encoded views, the other their nested-list
+        # twins; each seeds its n-th batch alike, so the pairs match
+        services = [ViewFusionService(run, **opts) for _ in range(2)]
+        for svc in services:
+            httpd = make_server(svc, host="127.0.0.1", port=0)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            servers.append(httpd)
+        ports = [h.server_address[1] for h in servers]
+        torch.cuda.synchronize()
+        group_norm_act.launches = spatial_self_attention.launches = 0
+        t0 = time.perf_counter()
+        for i, (name, blobs) in enumerate(files.items()):
+            body = {"angle": 0.5 * i, "steps": FORMAT_STEPS,
+                    "views": [base64.b64encode(b).decode() for b in blobs]}
+            twin = dict(body, views=[
+                (expected[f"{name}_{v}"].astype(np.float32) / 255.0).tolist()
+                for v in range(len(blobs))])
+            replies = []
+            for port, req in zip(ports, (body, twin)):
+                code, out = _post(port, req)
+                if code != 200:
+                    raise AssertionError(f"{name}: HTTP {code} {out}")
+                replies.append(decode_png(base64.b64decode(out["image"])))
+            if not (replies[0].shape == (64, 64, 3)
+                    and np.array_equal(*replies)):
+                raise AssertionError(f"{name}: the served image differs "
+                                     "from its nested-list twin's")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        forwards = sum(svc.model.unet_forwards for svc in services)
+        launches = {"k1": group_norm_act.launches,
+                    "k3": spatial_self_attention.launches}
+        if forwards == 0 or launches != {"k1": k1_sites * forwards,
+                                         "k3": k3_sites * forwards}:
+            raise AssertionError(
+                f"formats launch counters {launches} != per-forward sites "
+                f"({k1_sites}, {k3_sites}) x {forwards} forwards")
+        webp = (FORMATS_DIR / "view_0.webp").read_bytes()
+        code, out = _post(ports[0], {"angle": 0.0, "views": [
+            base64.b64encode(webp).decode()]})
+        if code != 400 or "WebP" not in out.get("error", ""):
+            raise AssertionError(f"a WebP view got HTTP {code} {out}")
+        say(f"served {2 * len(files)} requests ({len(files)} formats x "
+            f"{len(blobs)} views and their nested-list twins, DDIM "
+            f"{FORMAT_STEPS}) in {wall:.2f} s, each pair bit-equal; a WebP "
+            f"view: HTTP 400 {out['error']!r}; launches K1 "
+            f"{launches['k1']}, K3 {launches['k3']} over {forwards} UNet "
+            "forwards")
+        del services
+        torch.cuda.empty_cache()
+
+        gen, tgt, ref = (os.path.join(tmp.name, d) for d in
+                         ("gen", "tgt", "ref"))
+        for d in (gen, tgt, ref):
+            os.makedirs(d)
+        sources = render_views_shaded(11, image_size=64)[[0, 8, 16]]
+        i = 0
+        for name in ("jpeg_baseline", "jpeg_progressive"):
+            for v in range(len(files[name])):
+                Path(gen, f"{i:04d}.jpg").write_bytes(files[name][v])
+                Path(ref, f"{i:04d}.png").write_bytes(
+                    encode_png(expected[f"{name}_{v}"]))
+                Path(tgt, f"{i:04d}.png").write_bytes(encode_png(sources[v]))
+                i += 1
+        none = os.path.join(tmp.name, "no-lpips.npz")
+        got, want = (compute_metrics.compute_folder_metrics(
+            d, tgt, batch_size=4, lpips_weights=none, device=device)
+            for d in (gen, ref))
+        say(f"compute_metrics over {got['count']} JPEG views on the card: "
+            f"psnr {got['psnr']:.4f} ssim {got['ssim']:.4f}, equal to it "
+            "over their expected arrays as PNGs")
+        if got != want or got["count"] != i:
+            raise AssertionError(f"compute_metrics over the JPEGs {got} != "
+                                 f"over their expected arrays {want}")
+        say(f"phase 26 in {time.perf_counter() - t_phase:.1f} s")
+        return {"launches": launches, "decode_ms": decode_ms}
+    finally:
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        tmp.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
@@ -2820,6 +2979,10 @@ def main() -> int:
                                 cfg.unet.norm_groups)
     for tot, key in ((k1, "k1"), (k3, "k3")):
         tot["max_abs_err"] = max(tot["max_abs_err"], pretrained["errs"][key])
+    torch.cuda.empty_cache()
+
+    # 26. the input formats on the served path
+    formats = run_formats(state_dict, device, k1_calls, k3_calls)
 
     kernels = []
     for name, route_src, replaces, tot, key, per in (
@@ -2845,6 +3008,8 @@ def main() -> int:
             by_path[path] = counts[key]
         if key in pretrained["launches"]:
             by_path["pretrained"] = pretrained["launches"][key]
+        if key in formats["launches"]:
+            by_path["formats"] = formats["launches"][key]
         kernels.append({
             "name": name, "route": "cuda", "source": route_src,
             "replaces": replaces, "launches": sum(by_path.values()),

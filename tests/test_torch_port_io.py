@@ -68,6 +68,7 @@ def test_yaml_odd_scalars_round_trip_like_pyyaml():
     text = yaml.dump(ODD, default_flow_style=False)
     assert parse_yaml(text) == yaml.safe_load(text) == ODD
     ours = dump_yaml(ODD)
+    assert ours == text
     assert yaml.safe_load(ours) == ODD and parse_yaml(ours) == ODD
     nan = parse_yaml("a: .nan\nb: .NaN\n")
     assert all(np.isnan(v) for v in nan.values())
@@ -88,8 +89,21 @@ def test_yaml_odd_scalars_round_trip_like_pyyaml():
     ("a: 1\na: 2", "duplicate key"), ("%YAML 1.1\na: 1", "directive"),
 ])
 def test_yaml_refuses_what_it_does_not_take(text, construct):
-    with pytest.raises(ValueError, match=construct):
-        parse_yaml(text)
+    """Each construct the port's first YAML reader refused: what
+    ``yaml.safe_load`` reads, the port reads equal in value and type; what
+    it rejects (an undefined alias, ``a: b: c``, an unterminated quote, a
+    tab in the indentation, a directive with no ``---``), the port rejects
+    too, naming the construct."""
+    try:
+        want = yaml.safe_load(text)
+    except yaml.YAMLError:
+        with pytest.raises(ValueError, match=construct):
+            parse_yaml(text)
+    else:
+        got = parse_yaml(text)
+        assert got == want and type(got) is type(want)
+        for key, value in want.items():
+            assert type(got[key]) is type(value), (key, got[key], value)
 
 
 # ----------------------------------------------------------------------
@@ -275,12 +289,20 @@ def test_png_encoder_output_decodes_through_pil_exactly():
 
 
 def test_png_refuses_interlaced_16_bit_and_corrupt_files():
+    """16-bit and interlaced files, once refused, decode as PIL converts
+    them (16-bit gray clipped at 255, as PIL's "I;16" -> RGB does);
+    corrupt files and other formats still raise."""
     gray16 = _pil_png(Image.fromarray(
         np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000))
-    with pytest.raises(ValueError, match="16-bit"):
-        decode_png(gray16)
+    np.testing.assert_array_equal(decode_png(gray16), _pil_rgb(gray16))
+    assert decode_png(gray16)[0, :3, 0].tolist() == [0, 255, 255]
     header = struct.pack(">IIBBBBB", 2, 2, 8, 2, 0, 0, 1)
-    with pytest.raises(ValueError, match="interlaced"):
+    # Adam7 over 2 x 2: passes 1, 6 and 7 (1 + 3, 1 + 3 and 1 + 6 bytes)
+    interlaced = _png_file(header, bytes(
+        [0, 10, 20, 30, 1, 40, 50, 60, 2, 1, 2, 3, 4, 5, 6]))
+    np.testing.assert_array_equal(decode_png(interlaced),
+                                  _pil_rgb(interlaced))
+    with pytest.raises(ValueError, match="shorter"):
         decode_png(_png_file(header, b"\x00" * 14))
     good = encode_png(np.zeros((4, 4, 3), np.uint8))
     bad = bytearray(good)

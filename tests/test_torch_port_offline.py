@@ -120,17 +120,34 @@ def test_cli_root_layout(tmp_path, weights, capsys):
 
 
 def test_jpeg_is_refused_with_its_name(tmp_path):
-    """A standing difference: the JAX script reads JPEGs through PIL; the
-    port has no JPEG decoder and names the file."""
+    """JPEGs, once refused, are read as the JAX script's PIL reads them:
+    a dump of baseline, progressive, 4:2:0, 4:2:2, grayscale and
+    restart-marked ``.jpg``/``.jpeg`` files among the PNGs gives the JAX
+    numbers; a format neither reads still raises, naming the file and the
+    format."""
     from PIL import Image
 
     gen, tgt = _write_pairs(tmp_path, n=2)
+    rng = np.random.default_rng(3)
+    saves = [dict(quality=90), dict(quality=50, progressive=True),
+             dict(quality=75, subsampling=1, restart_marker_blocks=2),
+             dict(quality=95, subsampling=0, optimize=True)]
+    for i, kw in enumerate(saves):
+        for folder in (gen, tgt):
+            img = Image.fromarray(rng.integers(0, 256, (16, 16, 3),
+                                               dtype=np.uint8))
+            if i == 3:
+                img = img.convert("L")
+            ext = ".jpeg" if i % 2 else ".jpg"
+            img.save(os.path.join(folder, f"{i + 2:04d}{ext}"), "JPEG", **kw)
+    want = jax_folder_metrics(gen, tgt, batch_size=4)
+    assert want["count"] == 6
+    got = compute_metrics.compute_folder_metrics(gen, tgt, batch_size=4,
+                                                 device="cpu")
+    _close_metrics(got, want)
     Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(
-        os.path.join(gen, "0002.jpg"))
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(
-        os.path.join(tgt, "0002.jpg"))
-    assert jax_folder_metrics(gen, tgt)["count"] == 3
-    with pytest.raises(ValueError, match="0002.jpg.*PNG only"):
+        os.path.join(gen, "0009.jpg"), "WEBP")
+    with pytest.raises(ValueError, match="0009.jpg.*WebP"):
         compute_metrics.compute_folder_metrics(gen, tgt, device="cpu")
 
 

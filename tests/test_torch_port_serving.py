@@ -262,6 +262,10 @@ def _imports(path):
 
 
 def test_port_sources_import_nothing_of_jax():
+    """No port source imports JAX, the JAX package, PyYAML, PIL or
+    msgpack; and in a fresh interpreter where PIL and PyYAML cannot be
+    imported, the port's JPEG, PNG and YAML codecs decode the committed
+    fixtures to their expected arrays and load the YAML 1.1 config."""
     files = list((REPO / "viewfusion_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     for path in files:
@@ -269,6 +273,29 @@ def test_port_sources_import_nothing_of_jax():
             root = name.split(".")[0]
             assert root not in ("jax", "flax", "optax", "viewfusion_tpu",
                                 "yaml", "PIL", "msgpack"), (path, name)
+    script = """
+import pathlib, sys
+for name in ("PIL", "yaml", "jax", "viewfusion_tpu"):
+    sys.modules[name] = None
+import numpy as np
+from viewfusion_tpu_torch.utils.jpeg import decode_jpeg
+from viewfusion_tpu_torch.utils.image import decode_image
+from viewfusion_tpu_torch.config import load_config
+root = pathlib.Path("tests/torch_port_formats")
+expected = np.load(root / "expected.npz")
+for key in expected.files:
+    path = next(root.glob(key + ".*"))
+    data = path.read_bytes()
+    got = decode_jpeg(data) if path.suffix == ".jpg" else decode_image(data)
+    assert np.array_equal(got, expected[key]), key
+assert load_config(str(root / "small-tpu-4-yaml11.yaml")) == load_config(
+    "configs/small-tpu-4.yaml")
+print("ok", len(expected.files))
+"""
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok 18"
 
 
 def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path):

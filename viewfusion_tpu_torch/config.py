@@ -1,18 +1,24 @@
 """Typed configuration tree (the port's own copy of the JAX package's).
 
 The YAML schema is the reference's ``configs/*.yaml``, so every config
-under ``configs/`` loads 1:1.  YAML is read and written by the small
-codec at the end of this module (:func:`parse_yaml`, :func:`dump_yaml`),
-so the package needs no PyYAML.
+under ``configs/`` loads 1:1.  YAML is read and written as PyYAML's
+``safe_load`` and ``dump(default_flow_style=False)`` do, by the port's own
+codec (:mod:`viewfusion_tpu_torch.utils.yaml11`: :func:`parse_yaml`,
+:func:`dump_yaml`), so the package needs no PyYAML and a run dir's
+``config.yaml`` is the JAX package's byte for byte.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
-import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
+
+from viewfusion_tpu_torch.utils.yaml11 import dump_yaml, parse_yaml
+
+__all__ = ["BetaScheduleConfig", "DiffusionConfig", "UNetConfig",
+           "DiTConfig", "SplitConfig", "DataConfig", "TrainConfig", "Config",
+           "load_config", "parse_yaml", "dump_yaml"]
 
 
 @dataclass(frozen=True)
@@ -264,345 +270,3 @@ def load_config(path: str) -> Config:
 
 def _field_names(cls) -> List[str]:
     return [f.name for f in dataclasses.fields(cls)]
-
-
-# ----------------------------------------------------------------------
-# YAML: the block subset that the repo's configs and
-# ``yaml.dump(raw, default_flow_style=False)`` use
-# ----------------------------------------------------------------------
-# Nested block mappings and ``- item`` sequences (indented or not), the
-# empty ``{}`` and ``[]`` that yaml.dump writes, comments, and scalars
-# resolved as PyYAML's safe loader resolves them (YAML 1.1): null, bools
-# (true/yes/on ...), decimal and octal ints (``0`` then digits 0-7: an
-# unquoted NMR category id such as ``03001627`` is the int 787351, as
-# PyYAML reads it), floats such as ``5.0e-05`` or ``.inf``, and plain,
-# single- or double-quoted strings.  Anything else (flow collections,
-# anchors and aliases, tags, block and multi-line scalars, directives and
-# documents, complex keys, binary, hex and sexagesimal ints, timestamps)
-# raises a ``ValueError`` that names the construct.
-
-_Y_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
-_Y_BOOL = {v: b for b, vs in ((True, "yes Yes YES true True TRUE on On ON"),
-                              (False, "no No NO false False FALSE off Off "
-                                      "OFF")) for v in vs.split()}
-_Y_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
-_Y_OCTAL = re.compile(r"^[-+]?0[0-7_]+$")
-_Y_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
-                      r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
-                      r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
-# what PyYAML would resolve to a type this codec does not take
-_Y_OTHER = (
-    ("a sexagesimal number",
-     re.compile(r"^[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?$")),
-    ("a binary or hex int",
-     re.compile(r"^[-+]?(?:0b[0-1_]+|0x[0-9a-fA-F_]+)$")),
-    ("a timestamp", re.compile(r"^[0-9][0-9][0-9][0-9]-[0-9][0-9]?-")),
-    ("a merge key", re.compile(r"^<<$")),
-    ("a value key", re.compile(r"^=$")),
-)
-
-
-def _yaml_error(what: str, lineno: int, line: str) -> ValueError:
-    return ValueError(f"YAML line {lineno}: {what} is not supported by the "
-                      f"port's YAML codec: {line.strip()!r}")
-
-
-def _resolve_plain(text: str, lineno: int, line: str):
-    if _Y_NULL.match(text):
-        return None
-    if text in _Y_BOOL:
-        return _Y_BOOL[text]
-    if _Y_INT.match(text):
-        return int(text.replace("_", ""))
-    if _Y_OCTAL.match(text):  # PyYAML's construct_yaml_int
-        return int(text.replace("_", ""), 8)
-    if _Y_FLOAT.match(text):
-        v = text.replace("_", "").lower()
-        sign = -1.0 if v.startswith("-") else 1.0
-        v = v.lstrip("+-")
-        if v == ".inf":
-            return sign * math.inf
-        if v == ".nan":
-            return math.nan
-        return sign * float(v)
-    for what, pattern in _Y_OTHER:
-        if pattern.match(text):
-            raise _yaml_error(what, lineno, line)
-    return text
-
-
-_Y_ESCAPES = {"\\": "\\", '"': '"', "/": "/", "n": "\n", "t": "\t",
-              "r": "\r", "0": "\0", "a": "\a", "b": "\b", "e": "\x1b",
-              " ": " "}
-
-
-def _scalar(text: str, lineno: int, line: str):
-    """One scalar token (a key or a value), comment already stripped."""
-    if not text:
-        return None
-    head = text[0]
-    if head == "'":
-        if len(text) < 2 or not text.endswith("'"):
-            raise _yaml_error("a multi-line or unterminated quoted scalar",
-                              lineno, line)
-        body = text[1:-1]
-        if re.search(r"(?<!')'(?!')", body.replace("''", "")):
-            raise _yaml_error("text after a quoted scalar", lineno, line)
-        return body.replace("''", "'")
-    if head == '"':
-        out, i = [], 1
-        while i < len(text):
-            c = text[i]
-            if c == '"':
-                if i != len(text) - 1:
-                    raise _yaml_error("text after a quoted scalar", lineno,
-                                      line)
-                return "".join(out)
-            if c == "\\":
-                nxt = text[i + 1:i + 2]
-                width = {"x": 2, "u": 4, "U": 8}.get(nxt)
-                if nxt and nxt in _Y_ESCAPES:
-                    out.append(_Y_ESCAPES[nxt])
-                    i += 2
-                elif width and re.fullmatch(r"[0-9a-fA-F]+",
-                                            text[i + 2:i + 2 + width] or "-"):
-                    out.append(chr(int(text[i + 2:i + 2 + width], 16)))
-                    i += 2 + width
-                else:
-                    raise _yaml_error(f"the escape \\{nxt}", lineno, line)
-                continue
-            out.append(c)
-            i += 1
-        raise _yaml_error("a multi-line or unterminated quoted scalar",
-                          lineno, line)
-    if text == "{}":
-        return {}
-    if text == "[]":
-        return []
-    constructs = {"[": "a flow sequence", "{": "a flow mapping",
-                  "&": "an anchor", "*": "an alias", "!": "a tag",
-                  "|": "a block scalar", ">": "a block scalar",
-                  "%": "a directive", "@": "a reserved indicator",
-                  "`": "a reserved indicator", "?": "a complex key"}
-    if head in constructs:
-        raise _yaml_error(constructs[head], lineno, line)
-    if ": " in text or text.endswith(":"):
-        raise _yaml_error("a nested mapping on one line", lineno, line)
-    return _resolve_plain(text, lineno, line)
-
-
-def _strip_comment(line: str) -> str:
-    """The line without its comment (a ``#`` at its start or after a
-    space, outside quotes) and trailing spaces."""
-    quote = None
-    for i, c in enumerate(line):
-        if quote:
-            if c == quote:
-                quote = None
-        elif c in "'\"" and (i == 0 or line[i - 1] in " -:"):
-            quote = c
-        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
-            return line[:i].rstrip()
-    return line.rstrip()
-
-
-def _split_key(content: str, lineno: int, line: str):
-    """``key: value`` -> (key, value text) or None when not a mapping
-    entry."""
-    if content[0] in "'\"":
-        end = content.find(content[0], 1)
-        while content[0] == "'" and end >= 0 and \
-                content[end + 1:end + 2] == "'":
-            end = content.find("'", end + 2)
-        if end < 0 or not content[end + 1:].startswith(":"):
-            return None
-        rest = content[end + 2:]
-        key = _scalar(content[:end + 1], lineno, line)
-    else:
-        m = re.match(r"^(.*?):(?: |$)", content)
-        if not m:
-            return None
-        rest = content[m.end():]
-        if m.group(1).startswith("? "):
-            raise _yaml_error("a complex key", lineno, line)
-        key = _scalar(m.group(1), lineno, line)
-    if not isinstance(key, (str, int, float, bool)) and key is not None:
-        raise _yaml_error("a non-scalar key", lineno, line)
-    return key, rest.strip()
-
-
-def parse_yaml(text: str) -> Any:
-    """Parse the block-style YAML subset described above; equal to
-    ``yaml.safe_load`` on it, and raises on anything else."""
-    lines = []  # (lineno, indent, content, raw line)
-    for lineno, raw in enumerate(text.splitlines(), 1):
-        if "\t" in raw[:len(raw) - len(raw.lstrip())]:
-            raise _yaml_error("tab indentation", lineno, raw)
-        content = _strip_comment(raw)
-        if not content.strip():
-            continue
-        if content.startswith(("---", "...")) and \
-                content[3:4] in ("", " "):
-            raise _yaml_error("a document marker", lineno, raw)
-        indent = len(content) - len(content.lstrip(" "))
-        lines.append((lineno, indent, content.strip(), raw))
-    if not lines:
-        return None
-    pos = [0]
-
-    def block(indent: int):
-        lineno, ind, content, raw = lines[pos[0]]
-        if content == "-" or content.startswith("- "):
-            return sequence(ind)
-        if _split_key(content, lineno, raw) is None:
-            value = _scalar(content, lineno, raw)
-            pos[0] += 1
-            if pos[0] < len(lines) and lines[pos[0]][1] > ind:
-                raise _yaml_error("a multi-line plain scalar", lineno, raw)
-            return value
-        return mapping(ind)
-
-    def value_after(rest: str, ind: int, lineno: int, raw: str,
-                    seq_ok: bool):
-        """The value of an entry whose text after the indicator is
-        ``rest``, at indentation ``ind``."""
-        if rest:
-            value = _scalar(rest, lineno, raw)
-            pos[0] += 1
-            if pos[0] < len(lines) and lines[pos[0]][1] > ind:
-                raise _yaml_error("a multi-line plain scalar", lineno, raw)
-            return value
-        pos[0] += 1
-        if pos[0] >= len(lines):
-            return None
-        nxt = lines[pos[0]]
-        if nxt[1] > ind:
-            return block(nxt[1])
-        if seq_ok and nxt[1] == ind and (nxt[2] == "-"
-                                         or nxt[2].startswith("- ")):
-            return sequence(ind)  # yaml.dump's indentless sequence
-        return None
-
-    def mapping(ind: int) -> Dict[Any, Any]:
-        out: Dict[Any, Any] = {}
-        while pos[0] < len(lines):
-            lineno, i, content, raw = lines[pos[0]]
-            if i < ind:
-                break
-            if i > ind:
-                raise _yaml_error("unexpected indentation", lineno, raw)
-            if content == "-" or content.startswith("- "):
-                break  # an indentless sequence ends with its mapping
-            kv = _split_key(content, lineno, raw)
-            if kv is None:
-                raise _yaml_error("a line that is no mapping entry",
-                                  lineno, raw)
-            key, rest = kv
-            if key in out:
-                raise _yaml_error(f"the duplicate key {key!r}", lineno, raw)
-            out[key] = value_after(rest, ind, lineno, raw, seq_ok=True)
-        return out
-
-    def sequence(ind: int) -> List[Any]:
-        out: List[Any] = []
-        while pos[0] < len(lines):
-            lineno, i, content, raw = lines[pos[0]]
-            if i != ind or not (content == "-" or content.startswith("- ")):
-                if i > ind:
-                    raise _yaml_error("unexpected indentation", lineno, raw)
-                break
-            rest = content[1:].lstrip(" ")
-            if rest and _split_key(rest, lineno, raw) is not None:
-                # "- key: value" opens a mapping at the key's column
-                col = ind + (len(content) - len(rest))
-                lines[pos[0]] = (lineno, col, rest, raw)
-                out.append(mapping(col))
-            elif rest.startswith("- ") or rest == "-":
-                raise _yaml_error("a nested sequence on one line",
-                                  lineno, raw)
-            else:
-                out.append(value_after(rest, ind, lineno, raw,
-                                       seq_ok=False))
-        return out
-
-    result = block(lines[0][1])
-    if pos[0] < len(lines):
-        lineno, _, _, raw = lines[pos[0]]
-        raise _yaml_error("unexpected indentation", lineno, raw)
-    return result
-
-
-def _dump_scalar(v) -> str:
-    if v is None:
-        return "null"
-    if isinstance(v, bool):
-        return "true" if v else "false"
-    if isinstance(v, int):
-        return str(v)
-    if isinstance(v, float):  # PyYAML's represent_float
-        if v != v:
-            return ".nan"
-        if v in (math.inf, -math.inf):
-            return ".inf" if v > 0 else "-.inf"
-        text = repr(v).lower()
-        if "." not in text and "e" in text:
-            text = text.replace("e", ".0e", 1)
-        return text
-    if isinstance(v, str):
-        if "\n" in v or "\r" in v:
-            raise ValueError(f"YAML: multi-line strings are not supported "
-                             f"by the port's YAML codec: {v!r}")
-        plain = (v and v == v.strip() and v[0] not in "-?:,[]{}#&*!|>'\"%@`"
-                 and ": " not in v and " #" not in v
-                 and not v.endswith(":") and v.isprintable())
-        if plain:
-            try:
-                plain = _resolve_plain(v, 0, v) == v
-            except ValueError:
-                plain = False
-        return v if plain else "'" + v.replace("'", "''") + "'"
-    raise ValueError(f"YAML: cannot write a {type(v).__name__} value")
-
-
-def _dump(obj, indent: int, out: List[str]) -> None:
-    pad = " " * indent
-    if isinstance(obj, dict):
-        for k in sorted(obj, key=str):  # yaml.dump sorts keys
-            v = obj[k]
-            if isinstance(v, (dict, list)) and v:
-                out.append(f"{pad}{_dump_scalar(k)}:")
-                _dump(v, indent + 2 if isinstance(v, dict) else indent, out)
-            else:
-                out.append(f"{pad}{_dump_scalar(k)}: {_dump_value(v)}")
-    else:
-        for v in obj:
-            if isinstance(v, dict) and v:
-                sub: List[str] = []
-                _dump(v, indent + 2, sub)
-                out.append(f"{pad}- {sub[0][indent + 2:]}")
-                out.extend(sub[1:])
-            elif isinstance(v, list) and v:
-                raise ValueError("YAML: nested sequences are not supported "
-                                 "by the port's YAML codec")
-            else:
-                out.append(f"{pad}- {_dump_value(v)}")
-
-
-def _dump_value(v) -> str:
-    if isinstance(v, dict):
-        return "{}"
-    if isinstance(v, (list, tuple)):
-        return "[]"
-    return _dump_scalar(v)
-
-
-def dump_yaml(obj: Dict[str, Any]) -> str:
-    """Write a mapping in the block style of
-    ``yaml.dump(obj, default_flow_style=False)`` (sorted keys); the
-    result reads back equal through :func:`parse_yaml` and through
-    ``yaml.safe_load``."""
-    if not isinstance(obj, dict):
-        raise ValueError("YAML: the top level must be a mapping")
-    out: List[str] = []
-    _dump(obj, 0, out)
-    return "\n".join(out) + "\n" if out else "{}\n"

@@ -1,8 +1,8 @@
 """Inference serving on PyTorch: the dynamic-batching novel-view server
 (counterpart of ``viewfusion_tpu/serving.py``, same API and HTTP surface).
 
-  * requests carry N conditioning views (PNG bytes or [0,1] arrays) and a
-    target azimuth; responses carry the generated view;
+  * requests carry N conditioning views (PNG or JPEG bytes, or [0,1]
+    arrays) and a target azimuth; responses carry the generated view;
   * a background worker coalesces queued requests into fixed-size batches,
     one batch per (steps, sampler) bucket, served oldest-waiting-request
     first so a minority bucket is never starved by majority traffic;
@@ -12,29 +12,28 @@
 
 Usage:
     python -m viewfusion_tpu_torch.serving -s <run-dir> --port 8000
-    POST /generate  {"views": [<b64 png>...], "angle": 1.57,
+    POST /generate  {"views": [<b64 png or jpeg>...], "angle": 1.57,
                      "steps": 50, "sampler": "ddim"}
     GET  /healthz
 
 A run dir is the JAX package's: ``config.yaml`` and the checkpoint
 ``best_model_all.msgpack``, else ``model.msgpack`` (read by
 ``training/checkpoint.py``), so the service serves run dirs of either
-package.  PNGs of requests and replies go through the port's codec.  The
-service runs on CUDA unless ``device="cpu"`` is asked for.
+package.  Views are decoded by ``utils/image.py:decode_image`` (PNG and
+JPEG, equal to the JAX server's PIL; another format is a 400 naming it),
+replies encoded by the port's PNG codec.  The service runs on CUDA unless
+``device="cpu"`` is asked for.
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
-import binascii
 import io
 import json
 import os
-import struct
 import threading
 import time
-import zlib
 from collections import deque
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -49,7 +48,8 @@ from viewfusion_tpu_torch.models.view_fusion import ViewFusion
 from viewfusion_tpu_torch.training.checkpoint import Checkpoint
 from viewfusion_tpu_torch.utils.convert import (unet_params_to_jax,
                                                 unet_state_dict_from_jax)
-from viewfusion_tpu_torch.utils.png import decode_png, encode_png
+from viewfusion_tpu_torch.utils.image import decode_image
+from viewfusion_tpu_torch.utils.png import encode_png
 
 __all__ = ["ViewFusionService", "ClientError", "make_server", "serve",
            "main", "write_run_dir"]
@@ -339,11 +339,10 @@ def _decode_views(payload: dict) -> np.ndarray:
         raise ClientError('"views" must be a non-empty list')
     decoded = []
     for item in views:
-        if isinstance(item, str):  # base64 PNG
+        if isinstance(item, str):  # base64 PNG or JPEG
             try:
-                img = decode_png(base64.b64decode(item))
-            except (binascii.Error, ValueError, zlib.error,
-                    struct.error) as e:
+                img = decode_image(base64.b64decode(item))
+            except ValueError as e:  # binascii.Error is one
                 raise ClientError(f"undecodable view image: {e}")
             decoded.append(img.astype(np.float32) / 255.0)
         else:  # nested lists

@@ -7,9 +7,9 @@
 
 ``--root`` is the reference's ImageFolder layout: the first class dir
 (sorted) holds the generated images, the second the ground truth.  Files
-pair up in sorted name order.  Images are read with the port's PNG codec
-(``utils/png.py``); the JAX script also reads ``.jpg``/``.jpeg`` through
-PIL, which the port does not have, so a JPEG raises with its name.
+pair up in sorted name order.  ``.png``, ``.jpg`` and ``.jpeg`` files are
+read by the port's decoders (``utils/image.py:decode_image``), equal to
+the JAX script's PIL.
 LPIPS runs only when its weights file exists (``ops/lpips.py``);
 PSNR/SSIM always.
 """
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from viewfusion_tpu_torch.ops.metrics import compute_psnr, compute_ssim
-from viewfusion_tpu_torch.utils.png import decode_png
+from viewfusion_tpu_torch.utils.image import decode_image
 
 __all__ = ["compute_folder_metrics", "main"]
 
@@ -36,12 +36,12 @@ def _load_dir(path: str, exts=(".png", ".jpg", ".jpeg")) -> np.ndarray:
     imgs = []
     for f in files:
         full = os.path.join(path, f)
-        if not f.lower().endswith(".png"):
-            raise ValueError(f"{full}: JPEG images are not supported by the "
-                             "port's image reader (PNG only); convert them "
-                             "to PNG")
         with open(full, "rb") as fh:
-            imgs.append(decode_png(fh.read()).astype(np.float32) / 255.0)
+            try:
+                img = decode_image(fh.read())
+            except ValueError as e:
+                raise ValueError(f"{full}: {e}") from e
+        imgs.append(img.astype(np.float32) / 255.0)
     return np.stack(imgs)
 
 

@@ -1,11 +1,17 @@
 """Image grid / PNG / GIF utilities on NHWC numpy (the port's copy of
-``viewfusion_tpu/utils/image.py``).
+``viewfusion_tpu/utils/image.py``), and the image reader of the port's
+entry points.
 
 ``make_grid`` follows torchvision's semantics: row-major tiles,
 ``padding`` pixels of ``pad_value`` between tiles and around the border,
 and an optional per-image min-max rescale (``scale_each``).  PNGs go
 through the port's codec (:mod:`viewfusion_tpu_torch.utils.png`), GIFs
 through the GIF89a writer below; neither needs PIL.
+
+:func:`decode_image` reads what the JAX package reads through PIL's
+``Image.open(...).convert("RGB")``: PNG (``utils/png.py``) and JPEG
+(``utils/jpeg.py``), chosen by their signatures.  Other formats that PIL
+would open (GIF, WebP, BMP, TIFF, ...) raise a ``ValueError`` naming them.
 """
 
 from __future__ import annotations
@@ -15,10 +21,47 @@ from typing import List, Sequence
 
 import numpy as np
 
-from viewfusion_tpu_torch.utils.png import encode_png
+from viewfusion_tpu_torch.utils.jpeg import decode_jpeg, is_jpeg
+from viewfusion_tpu_torch.utils.png import decode_png, encode_png
 
 __all__ = ["make_grid", "to_uint8", "save_png", "save_gif", "encode_gif",
-           "gif_palette"]
+           "gif_palette", "decode_image", "image_format"]
+
+# signatures of formats PIL opens and the port does not read
+_OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
+                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+
+
+def image_format(data: bytes) -> str:
+    """The format of encoded image bytes, by signature: "PNG", "JPEG",
+    the name of another format, or "unknown"."""
+    head = bytes(data[:16])
+    if head.startswith(b"\x89PNG\r\n\x1a\n"):
+        return "PNG"
+    if is_jpeg(head):
+        return "JPEG"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "WebP"
+    for signature, name in _OTHER_FORMATS:
+        if head.startswith(signature):
+            return name
+    return "unknown"
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """PNG or JPEG bytes -> (H, W, 3) uint8 RGB, equal to PIL's
+    ``Image.open(...).convert("RGB")``; any other format raises a
+    ``ValueError`` that names it."""
+    kind = image_format(data)
+    if kind == "PNG":
+        return decode_png(data)
+    if kind == "JPEG":
+        return decode_jpeg(data)
+    if kind == "unknown":
+        raise ValueError("not a PNG or JPEG file (unrecognised image "
+                         "format)")
+    raise ValueError(f"{kind} images are not supported (PNG and JPEG "
+                     "only)")
 
 
 def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2,

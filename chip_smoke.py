@@ -143,13 +143,13 @@ Phases (any failure raises and exits non-zero without the final line):
      collections, block scalars, a folded string) read with load_config
      equals configs/small-tpu-4.yaml's Config, written into a run dir of
      phase 5's weights by Config.to_yaml and read back to the same tree;
-     ViewFusionService on that run dir behind make_server answers one
-     HTTP request per accepted view format (8-bit, 4-bit palette, 16-bit
-     and Adam7 PNG, baseline and progressive JPEG; three views each,
-     DDIM 20), each reply bit-equal to a second service's reply to the
-     same views sent as nested lists of the fixtures' expected arrays
-     (one request per batch in both, so seeds match); a WebP view gets
-     HTTP 400 naming WebP; exactly 69 K1 and 8 K3 launches per UNet
+     every view fixture (8-bit, 4-bit palette, 16-bit and Adam7 PNG,
+     baseline and progressive JPEG, lossy, lossless and alpha WebP, GIF,
+     4-bit BMP and LZW TIFF; three views each) decoded on the card's host
+     equals Pillow's decode in expected.npz; one ViewFusionService on that
+     run dir behind make_server answers one HTTP request per format (its
+     three views, DDIM 20) with a 64 x 64 image; an unrecognised view gets
+     HTTP 400 saying so; exactly 69 K1 and 8 K3 launches per UNet
      forward; each format's host decode ms per view; compute_metrics on
      the card over the JPEG fixtures equals it over their expected arrays
      as PNGs.
@@ -189,9 +189,8 @@ order, TF32 off); compute_metrics PSNR within 1e-6 relative, SSIM within
 f32 weights equal the .pt's bit for bit, and so do its served images the
 unconverted weights' (the same requests and seeds on one card); K1 and
 K3 at the path's row counts (the eval's packed rows too) within the
-bounds above.  Phase 26: every served image bit-equal to its nested-list
-twin's and compute_metrics equal (the decoders are exact, so the UNet
-sees the same inputs).
+bounds above.  Phase 26: every fixture's decode equal to Pillow's bit for
+bit and compute_metrics equal (the decoders are exact).
 """
 
 from __future__ import annotations
@@ -2110,17 +2109,22 @@ def mp_reference(ref_dir: str, device) -> dict:
 
 def torchrun(nproc: int, args: list, cwd: str) -> list:
     """``chip_smoke.py --rank-child <args>`` on ``nproc`` ranks under
-    ``python -m torch.distributed.run``; each rank prints one ``CHILD
-    {json}`` line.  Returns the ranks' records in rank order.  A launch
-    that fails, outlasts CHILD_TIMEOUT or loses a rank's record raises;
-    the whole process group is killed on the way out."""
+    ``python -m torch.distributed.run``; each rank writes its record to
+    ``child-<rank>.json`` in a fresh directory (the ranks share one output
+    pipe, where their lines can interleave).  Returns the ranks' records
+    in rank order.  A launch that fails, outlasts CHILD_TIMEOUT or loses a
+    rank's record raises; the whole process group is killed on the way
+    out."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={nproc}", str(Path(__file__).resolve()),
            "--rank-child", *args]
     t0 = time.perf_counter()
+    records = Path(tempfile.mkdtemp(prefix="records-", dir=cwd))
     proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+                            start_new_session=True,
+                            env={**os.environ, "VF_CHILD_RECORDS": str(
+                                records)})
     try:
         out, _ = proc.communicate(timeout=CHILD_TIMEOUT)
     except subprocess.TimeoutExpired:
@@ -2131,11 +2135,10 @@ def torchrun(nproc: int, args: list, cwd: str) -> list:
     finally:
         with contextlib.suppress(ProcessLookupError):
             os.killpg(proc.pid, signal.SIGKILL)
-    recs = [json.loads(line.split("CHILD ", 1)[1])
-            for line in out.splitlines() if "CHILD {" in line]
+    recs = [json.loads(f.read_text())
+            for f in sorted(records.glob("child-*.json"))]
     for line in out.splitlines():
-        if "CHILD {" not in line:
-            print("    | " + line)
+        print("    | " + line)
     if proc.returncode != 0 or len(recs) != nproc:
         raise AssertionError(f"torchrun {args[0]} on {nproc} ranks: rc "
                              f"{proc.returncode}, {len(recs)} records:\n"
@@ -2256,8 +2259,8 @@ def unet_rows():
 def rank_child(argv: list) -> int:
     """A rank of a torchrun launch (``--rank-child cli <cli argv>`` or
     ``--rank-child steps <reference dir>``): runs it with the kernels'
-    counters at 0 and the UNet's row counts recorded, then prints one
-    ``CHILD {json}`` line."""
+    counters at 0 and the UNet's row counts recorded, then writes its
+    record to ``$VF_CHILD_RECORDS/child-<rank>.json``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     group_norm_act.launches = group_norm_act_backward.launches = 0
@@ -2275,7 +2278,9 @@ def rank_child(argv: list) -> int:
                          "k3": spatial_self_attention.launches},
                rows=[[r, g, n] for (r, g), n in sorted(rows.items())],
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    print("CHILD " + json.dumps(rec), flush=True)
+    path = Path(os.environ["VF_CHILD_RECORDS"]) / f"child-{rec['rank']}"
+    path.with_suffix(".tmp").write_text(json.dumps(rec))
+    path.with_suffix(".tmp").replace(path.with_suffix(".json"))
     dist.destroy_process_group()
     return 0
 
@@ -2704,7 +2709,8 @@ def run_pretrained(state_dict: dict, device, k1_sites: int,
 
 
 # ----------------------------------------------------------------------
-# phase 26: the input formats (YAML 1.1, PNG forms, JPEG) on the served path
+# phase 26: the input formats (YAML 1.1, every view format) on the served
+# path
 # ----------------------------------------------------------------------
 FORMATS_DIR = Path(__file__).resolve().parent / "tests" / "torch_port_formats"
 FORMAT_STEPS = 20
@@ -2713,8 +2719,7 @@ FORMAT_STEPS = 20
 def run_formats(state_dict: dict, device, k1_sites: int,
                 k3_sites: int) -> dict:
     """Phase 26 (see the module docstring).  Returns the K1 and K3
-    launches of the two services and each format's host decode ms per
-    view."""
+    launches of the service and each format's host decode ms per view."""
     t_phase = time.perf_counter()
     cfg = load_config(str(FORMATS_DIR / "small-tpu-4-yaml11.yaml"))
     if cfg != load_config(MP_CONFIG):
@@ -2749,38 +2754,28 @@ def run_formats(state_dict: dict, device, k1_sites: int,
         if parse_yaml(text) != cfg.raw or cfg.raw["description"] in text:
             raise AssertionError("the run dir's config.yaml does not read "
                                  "back to the fixture's tree, folded")
-        opts = dict(batch_size=BATCH, max_wait_ms=0.0,
-                    default_steps=FORMAT_STEPS, device=device)
-        # one service takes the encoded views, the other their nested-list
-        # twins; each seeds its n-th batch alike, so the pairs match
-        services = [ViewFusionService(run, **opts) for _ in range(2)]
-        for svc in services:
-            httpd = make_server(svc, host="127.0.0.1", port=0)
-            threading.Thread(target=httpd.serve_forever, daemon=True).start()
-            servers.append(httpd)
-        ports = [h.server_address[1] for h in servers]
+        svc = ViewFusionService(run, batch_size=BATCH, max_wait_ms=0.0,
+                                default_steps=FORMAT_STEPS, device=device)
+        httpd = make_server(svc, host="127.0.0.1", port=0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        servers.append(httpd)
+        port = httpd.server_address[1]
         torch.cuda.synchronize()
         group_norm_act.launches = spatial_self_attention.launches = 0
         t0 = time.perf_counter()
         for i, (name, blobs) in enumerate(files.items()):
             body = {"angle": 0.5 * i, "steps": FORMAT_STEPS,
                     "views": [base64.b64encode(b).decode() for b in blobs]}
-            twin = dict(body, views=[
-                (expected[f"{name}_{v}"].astype(np.float32) / 255.0).tolist()
-                for v in range(len(blobs))])
-            replies = []
-            for port, req in zip(ports, (body, twin)):
-                code, out = _post(port, req)
-                if code != 200:
-                    raise AssertionError(f"{name}: HTTP {code} {out}")
-                replies.append(decode_png(base64.b64decode(out["image"])))
-            if not (replies[0].shape == (64, 64, 3)
-                    and np.array_equal(*replies)):
-                raise AssertionError(f"{name}: the served image differs "
-                                     "from its nested-list twin's")
+            code, out = _post(port, body)
+            if code != 200:
+                raise AssertionError(f"{name}: HTTP {code} {out}")
+            image = decode_png(base64.b64decode(out["image"]))
+            if image.shape != (64, 64, 3):
+                raise AssertionError(f"{name}: a served image of "
+                                     f"{image.shape}")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        forwards = sum(svc.model.unet_forwards for svc in services)
+        forwards = svc.model.unet_forwards
         launches = {"k1": group_norm_act.launches,
                     "k3": spatial_self_attention.launches}
         if forwards == 0 or launches != {"k1": k1_sites * forwards,
@@ -2788,18 +2783,17 @@ def run_formats(state_dict: dict, device, k1_sites: int,
             raise AssertionError(
                 f"formats launch counters {launches} != per-forward sites "
                 f"({k1_sites}, {k3_sites}) x {forwards} forwards")
-        webp = (FORMATS_DIR / "view_0.webp").read_bytes()
-        code, out = _post(ports[0], {"angle": 0.0, "views": [
-            base64.b64encode(webp).decode()]})
-        if code != 400 or "WebP" not in out.get("error", ""):
-            raise AssertionError(f"a WebP view got HTTP {code} {out}")
-        say(f"served {2 * len(files)} requests ({len(files)} formats x "
-            f"{len(blobs)} views and their nested-list twins, DDIM "
-            f"{FORMAT_STEPS}) in {wall:.2f} s, each pair bit-equal; a WebP "
-            f"view: HTTP 400 {out['error']!r}; launches K1 "
-            f"{launches['k1']}, K3 {launches['k3']} over {forwards} UNet "
-            "forwards")
-        del services
+        code, out = _post(port, {"angle": 0.0, "views": [
+            base64.b64encode(b"not an image").decode()]})
+        if code != 400 or "unrecognised" not in out.get("error", ""):
+            raise AssertionError(f"an unrecognised view got HTTP {code} "
+                                 f"{out}")
+        say(f"served {len(files)} requests (one per format, {len(blobs)} "
+            f"views each, DDIM {FORMAT_STEPS}) in {wall:.2f} s, each a "
+            f"64 x 64 image; an unrecognised view: HTTP 400 "
+            f"{out['error']!r}; launches K1 {launches['k1']}, K3 "
+            f"{launches['k3']} over {forwards} UNet forwards")
+        del svc
         torch.cuda.empty_cache()
 
         gen, tgt, ref = (os.path.join(tmp.name, d) for d in

@@ -123,8 +123,9 @@ def test_jpeg_is_refused_with_its_name(tmp_path):
     """JPEGs, once refused, are read as the JAX script's PIL reads them:
     a dump of baseline, progressive, 4:2:0, 4:2:2, grayscale and
     restart-marked ``.jpg``/``.jpeg`` files among the PNGs gives the JAX
-    numbers; a format neither reads still raises, naming the file and the
-    format."""
+    numbers; so does a WebP file named ``.jpg``, which both read by its
+    content; a file neither reads raises, naming the file and that its
+    format is unrecognised."""
     from PIL import Image
 
     gen, tgt = _write_pairs(tmp_path, n=2)
@@ -145,9 +146,18 @@ def test_jpeg_is_refused_with_its_name(tmp_path):
     got = compute_metrics.compute_folder_metrics(gen, tgt, batch_size=4,
                                                  device="cpu")
     _close_metrics(got, want)
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(
-        os.path.join(gen, "0009.jpg"), "WEBP")
-    with pytest.raises(ValueError, match="0009.jpg.*WebP"):
+    for folder in (gen, tgt):
+        Image.fromarray(rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+                        ).save(os.path.join(folder, "0009.jpg"), "WEBP")
+    want = jax_folder_metrics(gen, tgt, batch_size=4)
+    assert want["count"] == 7
+    _close_metrics(compute_metrics.compute_folder_metrics(
+        gen, tgt, batch_size=4, device="cpu"), want)
+    with open(os.path.join(gen, "0009.jpg"), "wb") as f:
+        f.write(b"neither reads this")
+    with pytest.raises(OSError):  # PIL's UnidentifiedImageError
+        jax_folder_metrics(gen, tgt, batch_size=4)
+    with pytest.raises(ValueError, match="0009.jpg.*unrecognised"):
         compute_metrics.compute_folder_metrics(gen, tgt, device="cpu")
 
 

@@ -264,8 +264,9 @@ def _imports(path):
 def test_port_sources_import_nothing_of_jax():
     """No port source imports JAX, the JAX package, PyYAML, PIL or
     msgpack; and in a fresh interpreter where PIL and PyYAML cannot be
-    imported, the port's JPEG, PNG and YAML codecs decode the committed
-    fixtures to their expected arrays and load the YAML 1.1 config."""
+    imported, the port's image codecs (PNG, JPEG, WebP, GIF, BMP, TIFF)
+    and YAML reader decode the committed fixtures to their expected
+    arrays and load the YAML 1.1 config."""
     files = list((REPO / "viewfusion_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     for path in files:
@@ -295,7 +296,7 @@ print("ok", len(expected.files))
     proc = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok 18"
+    assert proc.stdout.strip() == "ok 36"
 
 
 def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path):

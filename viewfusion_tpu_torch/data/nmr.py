@@ -13,7 +13,8 @@ shards and arguments the batches equal the JAX stream's bit for bit.
     shuffle buffer, the per-host shard split ``urls[host::num_hosts]``.
   * the reader of decoded views: the pre-decoded `.rec` twins when every
     shard has one, else the native C++ loader when it builds, else the
-    port's PNG codec (``NMRStream.reader`` says which ran).
+    port's image codecs (``utils/image.py:decode_image``;
+    ``NMRStream.reader`` says which ran).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from viewfusion_tpu_torch.data.native_loader import (NativeShardReader,
                                                      native_available,
                                                      require_native)
 from viewfusion_tpu_torch.data.rawrec import RawShardReader, raw_twin
-from viewfusion_tpu_torch.utils.png import decode_png
+from viewfusion_tpu_torch.utils.image import decode_image
 
 __all__ = ["process_sample", "decode_views", "NMRStream", "create_nmr_stream",
            "Batcher", "prefetch"]
@@ -42,9 +43,10 @@ TOTAL_VIEWS = 24  # views per object in NMR ShapeNet (data/nmr_dataset.py:11)
 def decode_views_u8(sample: Dict[str, bytes],
                     total_views: int = TOTAL_VIEWS) -> np.ndarray:
     """Decode the ``0000.png .. 0023.png`` views of one sample to
-    (V, H, W, 3) uint8 (through the port's PNG codec, equal to PIL's
+    (V, H, W, 3) uint8 (through the port's codecs, which read a view by
+    its content as PIL's ``Image.open`` does, equal to its
     ``convert("RGB")``)."""
-    return np.stack([decode_png(sample[f"{i:04d}.png"])
+    return np.stack([decode_image(sample[f"{i:04d}.png"])
                      for i in range(total_views)], 0)
 
 

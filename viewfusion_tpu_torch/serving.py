@@ -12,17 +12,18 @@
 
 Usage:
     python -m viewfusion_tpu_torch.serving -s <run-dir> --port 8000
-    POST /generate  {"views": [<b64 png or jpeg>...], "angle": 1.57,
+    POST /generate  {"views": [<b64 image>...], "angle": 1.57,
                      "steps": 50, "sampler": "ddim"}
     GET  /healthz
 
 A run dir is the JAX package's: ``config.yaml`` and the checkpoint
 ``best_model_all.msgpack``, else ``model.msgpack`` (read by
 ``training/checkpoint.py``), so the service serves run dirs of either
-package.  Views are decoded by ``utils/image.py:decode_image`` (PNG and
-JPEG, equal to the JAX server's PIL; another format is a 400 naming it),
-replies encoded by the port's PNG codec.  The service runs on CUDA unless
-``device="cpu"`` is asked for.
+package.  Views are decoded by ``utils/image.py:decode_image`` (PNG,
+JPEG, WebP, GIF, BMP and TIFF, equal to the JAX server's PIL; a form it
+does not read is a 400 naming it, and so is a view larger than the
+model's, before its data is decoded), replies encoded by the port's PNG
+codec.  The service runs on CUDA unless ``device="cpu"`` is asked for.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from viewfusion_tpu_torch.training.checkpoint import Checkpoint
 from viewfusion_tpu_torch.utils.convert import (unet_params_to_jax,
                                                 unet_state_dict_from_jax)
 from viewfusion_tpu_torch.utils.image import decode_image
-from viewfusion_tpu_torch.utils.png import encode_png
+from viewfusion_tpu_torch.utils.png import FrameTooLarge, encode_png
 
 __all__ = ["ViewFusionService", "ClientError", "make_server", "serve",
            "main", "write_run_dir"]
@@ -333,15 +334,23 @@ class ViewFusionService:
                 r.event.set()
 
 
-def _decode_views(payload: dict) -> np.ndarray:
+def _decode_views(payload: dict,
+                  image_size: Optional[int] = None) -> np.ndarray:
+    """The views of a request as (N, H, W, 3) float32.  An image file
+    whose header declares more than ``image_size`` rows or columns (the
+    service's views, which the JAX server refuses after its decode) is
+    refused before its data is decoded."""
     views = payload.get("views")
     if not isinstance(views, list) or not views:
         raise ClientError('"views" must be a non-empty list')
     decoded = []
     for item in views:
-        if isinstance(item, str):  # base64 PNG or JPEG
+        if isinstance(item, str):  # a base64 image file
             try:
-                img = decode_image(base64.b64decode(item))
+                img = decode_image(base64.b64decode(item), image_size)
+            except FrameTooLarge as e:
+                raise ClientError(
+                    f"views must be {image_size}x{image_size}: {e}")
             except ValueError as e:  # binascii.Error is one
                 raise ClientError(f"undecodable view image: {e}")
             decoded.append(img.astype(np.float32) / 255.0)
@@ -400,7 +409,7 @@ def make_server(service: ViewFusionService, host: str = "0.0.0.0",
                     raise ClientError("body must be a JSON object")
                 if "angle" not in payload:
                     raise ClientError('"angle" is required')
-                cond = _decode_views(payload)
+                cond = _decode_views(payload, service.image_size)
                 img = service.submit(
                     cond, payload["angle"], payload.get("steps"),
                     sampler=payload.get("sampler", "ddim"))

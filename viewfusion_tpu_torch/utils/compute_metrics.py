@@ -8,8 +8,8 @@
 ``--root`` is the reference's ImageFolder layout: the first class dir
 (sorted) holds the generated images, the second the ground truth.  Files
 pair up in sorted name order.  ``.png``, ``.jpg`` and ``.jpeg`` files are
-read by the port's decoders (``utils/image.py:decode_image``), equal to
-the JAX script's PIL.
+read by the port's decoders (``utils/image.py:decode_image``, by content,
+as the JAX script's PIL reads them), equal to PIL's.
 LPIPS runs only when its weights file exists (``ops/lpips.py``);
 PSNR/SSIM always.
 """

@@ -9,9 +9,12 @@ through the port's codec (:mod:`viewfusion_tpu_torch.utils.png`), GIFs
 through the GIF89a writer below; neither needs PIL.
 
 :func:`decode_image` reads what the JAX package reads through PIL's
-``Image.open(...).convert("RGB")``: PNG (``utils/png.py``) and JPEG
-(``utils/jpeg.py``), chosen by their signatures.  Other formats that PIL
-would open (GIF, WebP, BMP, TIFF, ...) raise a ``ValueError`` naming them.
+``Image.open(...).convert("RGB")``, choosing the decoder by the file's
+signature: PNG (``utils/png.py``), JPEG (``utils/jpeg.py``), GIF
+(``utils/gif.py``), BMP (``utils/bmp.py``), TIFF (``utils/tiff.py``) and
+WebP (``utils/webp.py`` over ``utils/vp8.py`` and ``utils/vp8l.py``).
+Each is bit-equal to Pillow on what it accepts; a variant it does not read
+(named in its module) and any other file raise a ``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -21,20 +24,26 @@ from typing import List, Sequence
 
 import numpy as np
 
+from viewfusion_tpu_torch.utils.bmp import decode_bmp
+from viewfusion_tpu_torch.utils.gif import decode_gif
 from viewfusion_tpu_torch.utils.jpeg import decode_jpeg, is_jpeg
 from viewfusion_tpu_torch.utils.png import decode_png, encode_png
+from viewfusion_tpu_torch.utils.tiff import decode_tiff
+from viewfusion_tpu_torch.utils.webp import decode_webp
 
 __all__ = ["make_grid", "to_uint8", "save_png", "save_gif", "encode_gif",
            "gif_palette", "decode_image", "image_format"]
 
-# signatures of formats PIL opens and the port does not read
-_OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
-                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+# signature -> format, after PNG and JPEG
+_SIGNATURES = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
+               (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+_DECODERS = {"PNG": decode_png, "JPEG": decode_jpeg, "GIF": decode_gif,
+             "BMP": decode_bmp, "TIFF": decode_tiff, "WebP": decode_webp}
 
 
 def image_format(data: bytes) -> str:
     """The format of encoded image bytes, by signature: "PNG", "JPEG",
-    the name of another format, or "unknown"."""
+    "GIF", "BMP", "TIFF", "WebP" or "unknown"."""
     head = bytes(data[:16])
     if head.startswith(b"\x89PNG\r\n\x1a\n"):
         return "PNG"
@@ -42,26 +51,23 @@ def image_format(data: bytes) -> str:
         return "JPEG"
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         return "WebP"
-    for signature, name in _OTHER_FORMATS:
+    for signature, name in _SIGNATURES:
         if head.startswith(signature):
             return name
     return "unknown"
 
 
-def decode_image(data: bytes) -> np.ndarray:
-    """PNG or JPEG bytes -> (H, W, 3) uint8 RGB, equal to PIL's
-    ``Image.open(...).convert("RGB")``; any other format raises a
-    ``ValueError`` that names it."""
+def decode_image(data: bytes, max_side=None) -> np.ndarray:
+    """Image bytes -> (H, W, 3) uint8 RGB, equal to PIL's
+    ``Image.open(...).convert("RGB")``; an unrecognised file, or a variant
+    its decoder does not read, raises a ``ValueError`` that names it.  An
+    image whose header declares more than ``max_side`` rows or columns
+    raises ``png.FrameTooLarge`` before its data is decoded."""
     kind = image_format(data)
-    if kind == "PNG":
-        return decode_png(data)
-    if kind == "JPEG":
-        return decode_jpeg(data)
     if kind == "unknown":
-        raise ValueError("not a PNG or JPEG file (unrecognised image "
-                         "format)")
-    raise ValueError(f"{kind} images are not supported (PNG and JPEG "
-                     "only)")
+        raise ValueError("not a PNG, JPEG, GIF, BMP, TIFF or WebP file "
+                         "(unrecognised image format)")
+    return _DECODERS[kind](data, max_side)
 
 
 def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2,

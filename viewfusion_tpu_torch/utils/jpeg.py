@@ -45,7 +45,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from viewfusion_tpu_torch.utils.png import MAX_PIXELS
+from viewfusion_tpu_torch.utils.png import MAX_PIXELS, check_side
 
 __all__ = ["decode_jpeg", "is_jpeg"]
 
@@ -507,7 +507,7 @@ def _entropy_segments(data: bytes, pos: int):
             return segments, j
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
+def decode_jpeg(data: bytes, max_side=None) -> np.ndarray:
     """JPEG bytes -> (H, W, 3) uint8 RGB (see the module docstring)."""
     data = bytes(data)
     if not is_jpeg(data):
@@ -570,6 +570,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             if w * h > MAX_PIXELS:
                 raise ValueError(f"JPEG frame of {w}x{h} = {w * h} pixels "
                                  f"is over the limit of {MAX_PIXELS}")
+            check_side(w, h, max_side)
             comps = [_Component(body[6 + 3 * i], body[7 + 3 * i] >> 4,
                                 body[7 + 3 * i] & 15, body[8 + 3 * i])
                      for i in range(nc)]

@@ -12,7 +12,11 @@ their high byte, except 16-bit gray, which PIL opens as "I;16" and whose
 non-interlaced ones.)  A malformed file raises a ``ValueError``, and so
 does an image of more than :data:`MAX_PIXELS` pixels, as PIL's
 ``DecompressionBombError`` does, before its data is inflated; the data is
-inflated no further than the header's size needs.
+inflated no further than the header's size needs.  Every decoder of the
+port takes ``max_side``: a frame whose header declares more rows or
+columns raises :class:`FrameTooLarge` (a ``ValueError``) before anything
+past the header is read, so that a server bounds a view's work by the size
+it serves.
 
 :func:`encode_png` writes RGB uint8, each row with the filter (None, Sub
 or Up) whose output has the least sum of absolute values.
@@ -25,11 +29,25 @@ import zlib
 
 import numpy as np
 
-__all__ = ["decode_png", "encode_png", "MAX_PIXELS"]
+__all__ = ["decode_png", "encode_png", "MAX_PIXELS", "FrameTooLarge",
+           "check_side"]
 
 # PIL's Image.MAX_IMAGE_PIXELS (1024 ** 3 // 4 // 3) twice: the size above
 # which ``Image.open`` raises DecompressionBombError (JPEG holds to it too)
 MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
+
+
+class FrameTooLarge(ValueError):
+    """A frame whose header declares more rows or columns than the caller
+    takes."""
+
+
+def check_side(w: int, h: int, max_side) -> None:
+    """Raise :class:`FrameTooLarge` where ``w`` or ``h`` is over
+    ``max_side`` (None: no limit)."""
+    if max_side is not None and max(w, h) > max_side:
+        raise FrameTooLarge(f"a frame of {w}x{h} is over the side of "
+                            f"{max_side} pixels asked for")
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel
@@ -121,7 +139,7 @@ def _samples(rows: np.ndarray, w: int, depth: int, ch: int) -> np.ndarray:
     return rows[:, :w * ch].reshape(h, w, ch)
 
 
-def decode_png(data: bytes) -> np.ndarray:
+def decode_png(data: bytes, max_side=None) -> np.ndarray:
     """PNG bytes -> (H, W, 3) uint8 RGB (see the module docstring)."""
     header, palette, idat = None, None, []
     for kind, body in _chunks(bytes(data)):
@@ -147,6 +165,7 @@ def decode_png(data: bytes) -> np.ndarray:
     if w * h > MAX_PIXELS:
         raise ValueError(f"PNG image of {w}x{h} = {w * h} pixels is over "
                          f"the limit of {MAX_PIXELS}")
+    check_side(w, h, max_side)
     ch = _CHANNELS[color]
     bpp = max(1, depth * ch // 8)  # the filters' byte distance
 

@@ -1,0 +1,23 @@
+"""The whole served step's share of the bf16 peak: real views (never the
+padded slots) x steps x the UNet's analytic forward FLOPs per row, over
+the ``batch_log`` seconds of the same batches, over 989 TFLOP/s; in a
+traced run the batches that ended before the profiler started."""
+
+from bench_h100.metrics._common import PEAK_BF16
+from bench_h100.work import unet as work
+
+
+def read(record):
+    if record.get("kind") != "serve" or record.get("denoiser") != "unet":
+        return None
+    log, views = record.get("batch_log"), record.get("real_views")
+    if not log or not views or len(views) != len(log):
+        return None
+    n = record.get("unprofiled_batches")   # the profiler slows the rest
+    log, views = log[:n], views[:n]
+    if not log:
+        return None
+    seconds = sum(s for (_, _, _, s) in log)
+    flops = sum(views) * record["steps"] * work.flops_per_row(
+        record["widths"])
+    return 100.0 * flops / seconds / PEAK_BF16

@@ -217,7 +217,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from viewfusion_tpu_torch import _native
+from viewfusion_tpu_torch import _native, tracing
 from viewfusion_tpu_torch.config import Config
 from viewfusion_tpu_torch.models import unet as unet_module
 from viewfusion_tpu_torch.models.unet import GroupNormAct, SelfAttention, UNet
@@ -302,6 +302,20 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def forwards_since(mark: int) -> int:
+    """The UNet forwards (``unet.forward`` spans) begun after ``mark``."""
+    return len(tracing.spans("unet.forward", after=mark))
+
+
+def span_summary(mark: int) -> str:
+    """Each span name recorded after ``mark``: its count and median ms."""
+    by = {}
+    for sp in tracing.spans(after=mark):
+        by.setdefault(sp.name, []).append(sp.seconds * 1e3)
+    return ", ".join(f"{name} {len(v)} x {np.median(v):.3f} ms"
+                     for name, v in sorted(by.items()))
 
 
 def card_line() -> str:
@@ -876,7 +890,7 @@ def run_trainer(device, k1_sites: int, k3_sites: int) -> dict:
     group_norm_act.launches = group_norm_act_backward.launches = 0
     spatial_self_attention.launches = 0
     group_norm_act_backward.grad_copies = 0
-    trainer.model.unet_forwards = 0
+    mark = tracing.mark()
     losses, times = [], []
     for it in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -887,7 +901,8 @@ def run_trainer(device, k1_sites: int, k3_sites: int) -> dict:
                 "k3": spatial_self_attention.launches}
     copies = group_norm_act_backward.grad_copies
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    steps = trainer.model.unet_forwards
+    steps = forwards_since(mark)
+    say(f"train step spans: {span_summary(mark)}")
     want = {"k1": k1_sites * steps, "k2": k1_sites * steps,
             "k3": k3_sites * steps}
     if steps != TRAIN_STEPS or launches != want:
@@ -1164,14 +1179,14 @@ def run_ancestral(device, k1_sites: int, k3_sites: int) -> dict:
     gen =trainer._gen_inputs(batch["cond"], counts, batch["angle"], 0)[0]
     torch.cuda.synchronize()
     group_norm_act.launches = spatial_self_attention.launches = 0
-    model.unet_forwards = 0
+    mark = tracing.mark()
     t0 = time.perf_counter()
     out = trainer._eval_samples(gen, batch)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     launches = {"k1": group_norm_act.launches,
                 "k3": spatial_self_attention.launches}
-    steps = model.unet_forwards
+    steps = forwards_since(mark)
     if steps != T or launches != {"k1": k1_sites * T, "k3": k3_sites * T}:
         raise AssertionError(f"ancestral launch counters {launches} over "
                              f"{steps} steps != sites x {T}")
@@ -1338,6 +1353,7 @@ def _post(port: int, body: dict):
 def serve_run_dir(run: str, device) -> int:
     """ViewFusionService on the run dir answers two base64-PNG requests
     over HTTP, from the EMA shadow; returns its UNet forwards."""
+    mark = tracing.mark()
     service = ViewFusionService(run, batch_size=2, default_steps=20,
                                 device=device)
     state, _ = Checkpoint(run).load("best_model_all.msgpack",
@@ -1371,7 +1387,8 @@ def serve_run_dir(run: str, device) -> int:
         httpd.shutdown()
         httpd.server_close()
         server.join(30)
-    return service.model.unet_forwards
+    say(f"served run dir spans: {span_summary(mark)}")
+    return forwards_since(mark)
 
 
 def run_experiment(k1_sites: int, k3_sites: int, trainer_ms: float):
@@ -1399,15 +1416,15 @@ def run_experiment(k1_sites: int, k3_sites: int, trainer_ms: float):
 
         def drive(argv):
             nonlocal forwards, steps
+            mark = tracing.mark()
             exp = cli.main(argv)
-            tr = exp.trainer
-            forwards += tr.model.unet_forwards + (
-                tr.ema_model.unet_forwards if tr.ema_model else 0)
+            forwards += forwards_since(mark)
             exps.append(exp)
             return exp
 
         os.chdir(tmp.name)
         t0 = time.perf_counter()
+        train_mark = tracing.mark()
         exp = drive(["-c", cfg_path, "-t"])
         train_s = time.perf_counter() - t0
         run = os.path.abspath(exp.out_dir)
@@ -1433,7 +1450,12 @@ def run_experiment(k1_sites: int, k3_sites: int, trainer_ms: float):
             + "; eval " + ", ".join(f"it {k}: ssim {a:.4f} psnr {b:.2f}"
                                     for k, (a, b) in sorted(evals.items())))
         say(compare_readers(data))
-        gaps = np.diff(exp.step_ends)[1:10] * 1e3  # steps 2..10
+        step_ends = [sp.end / 1e9 for sp in
+                     tracing.spans("train.step", after=train_mark)]
+        eval_seconds = [sp.seconds for sp in
+                        tracing.spans("eval.pass", after=train_mark)]
+        say(f"-t spans: {span_summary(train_mark)}")
+        gaps = np.diff(step_ends)[1:10] * 1e3  # steps 2..10
         loop_ms = float(np.median(gaps))
         busy = 0.0
         if exp.last_profile is not None:
@@ -1467,7 +1489,7 @@ def run_experiment(k1_sites: int, k3_sites: int, trainer_ms: float):
             f"(phase 10); model.msgpack {size:.0f} MB: save {save_s:.2f} s "
             f"(sync), load {load_s:.2f} s ({read_s:.2f} s read and "
             f"decode); eval passes "
-            + ", ".join(f"{v:.2f} s" for v in exp.eval_seconds)
+            + ", ".join(f"{v:.2f} s" for v in eval_seconds)
             + f"; idle share {(1 - busy / loop_ms) if busy else 0:.0%} of "
             "the loop's median step")
         del exp, state, before, tr
@@ -1493,13 +1515,15 @@ def run_experiment(k1_sites: int, k3_sites: int, trainer_ms: float):
         del exp
         torch.cuda.empty_cache()
 
+        eval_mark = tracing.mark()
         exp = drive(["-s", run, "-e"])
         last = json.loads(open(os.path.join(run, "metrics.jsonl"))
                           .readlines()[-1])
         if not {"ssim", "psnr"} <= set(last):
             raise AssertionError(f"-e logged {last}")
+        eval_pass = tracing.spans("eval.pass", after=eval_mark)[0]
         say(f"-e: ssim {last['ssim']:.4f} psnr {last['psnr']:.2f} in "
-            f"{exp.eval_seconds[0]:.2f} s")
+            f"{eval_pass.seconds:.2f} s")
         exps.clear()
         del exp
 
@@ -1628,7 +1652,7 @@ def run_dit_serving(cfg: Config, weights: dict, device, k3_sites: int):
     service.batch_log.clear()
     torch.cuda.synchronize()
     spatial_self_attention.launches = 0
-    service.model.unet_forwards = 0
+    mark = tracing.mark()
     t0 = time.perf_counter()
     threads = [threading.Thread(target=call, args=(i,))
                for i in range(DIT_REQUESTS)]
@@ -1639,7 +1663,7 @@ def run_dit_serving(cfg: Config, weights: dict, device, k3_sites: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = spatial_self_attention.launches
-    forwards = service.model.unet_forwards
+    forwards = forwards_since(mark)
     if any(r is None for r in results):
         raise AssertionError("a DiT request did not complete")
     for img, _ in results:
@@ -1701,14 +1725,14 @@ def run_dit_trainer(weights: dict, device, k3_sites: int) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         spatial_self_attention.launches = 0
-        trainer.model.unet_forwards = 0
+        mark = tracing.mark()
         losses, times = [], []
         for it in range(TRAIN_STEPS):
             t0 = time.perf_counter()
             losses.append(trainer.train_step(batches[it]).item())
             times.append((time.perf_counter() - t0) * 1e3)
         n = spatial_self_attention.launches
-        steps = trainer.model.unet_forwards
+        steps = forwards_since(mark)
         want = k3_sites * steps * (2 if remat else 1)
         if steps != TRAIN_STEPS or n != want:
             raise AssertionError(f"DiT training (remat {remat}): K3 "
@@ -1786,14 +1810,14 @@ def run_dit_ancestral(weights: dict, device, k3_sites: int) -> int:
                              generator=gen)
     torch.cuda.synchronize()
     spatial_self_attention.launches = 0
-    model.unet_forwards = 0
+    mark = tracing.mark()
     t0 = time.perf_counter()
     carry = model.chain_segment(
         carry, range(T - 1, T - 1 - DIT_CHAIN_STEPS, -1), cond, vc, angle,
         sample_num, idx)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches, steps = spatial_self_attention.launches, model.unet_forwards
+    launches, steps = spatial_self_attention.launches, forwards_since(mark)
     if steps != DIT_CHAIN_STEPS or launches != k3_sites * steps:
         raise AssertionError(f"DiT ancestral: K3 launches {launches} over "
                              f"{steps} steps != {k3_sites} per step")
@@ -1921,12 +1945,11 @@ def run_dit_experiment(k3_sites: int) -> int:
 
         def drive(argv) -> str:
             nonlocal forwards
+            mark = tracing.mark()
             exp = cli.main(argv)
-            tr = exp.trainer
-            if not isinstance(tr.model.unet, DiT):
+            if not isinstance(exp.trainer.model.unet, DiT):
                 raise AssertionError("the CLI did not build a DiT")
-            forwards += tr.model.unet_forwards + (
-                tr.ema_model.unet_forwards if tr.ema_model else 0)
+            forwards += forwards_since(mark)
             return os.path.abspath(exp.out_dir)
 
         os.chdir(tmp.name)
@@ -2152,18 +2175,21 @@ def _child_cli(argv: list) -> dict:
     """``cli.main(argv)`` (``-t``) on this rank, then an eval pass of the
     Experiment (the best-model files); the loop's step times, the run
     dir's checks (rank 0) and what the Experiment ran on."""
+    mark = tracing.mark()
     exp = cli.main(argv)
     exp.eval()
     tr = exp.trainer
     run = exp.out_dir
-    forwards = tr.model.unet_forwards + (
-        tr.ema_model.unet_forwards if tr.ema_model else 0)
-    rec = {"forwards": forwards, "steps": tr.step, "it": exp.it,
-           "loop_ms": float(np.median(np.diff(exp.step_ends)[1:] * 1e3)),
+    step_ends = [sp.end / 1e9 for sp in tracing.spans("train.step",
+                                                       after=mark)]
+    rec = {"forwards": forwards_since(mark), "steps": tr.step, "it": exp.it,
+           "loop_ms": float(np.median(np.diff(step_ends)[1:] * 1e3)),
            "zero1": tr.zero1 is not None,
            "fused_feed": exp.config.train.fused_feed,
            "mesh": [exp.mesh.data, exp.mesh.view],
-           "eval_seconds": exp.eval_seconds, "run": run,
+           "eval_seconds": [sp.seconds for sp in
+                            tracing.spans("eval.pass", after=mark)],
+           "run": run,
            "moment_bytes": tr.zero1.moment_bytes() if tr.zero1 else None}
     if exp.is_host0:
         state, extra = Checkpoint(run).load("model.msgpack",
@@ -2643,6 +2669,7 @@ def run_pretrained(state_dict: dict, device, k1_sites: int,
         torch.cuda.empty_cache()
 
         group_norm_act.launches = spatial_self_attention.launches = 0
+        mark = tracing.mark()
         with unet_rows() as rows:
             service = ViewFusionService(run, **opts)
             for i, w in enumerate(want):
@@ -2657,7 +2684,6 @@ def run_pretrained(state_dict: dict, device, k1_sites: int,
                 got = list(pool.map(service.submit, conds, angles))
             wall = time.perf_counter() - t0
             batches = list(service.batch_log)[2:]
-            forwards = service.model.unet_forwards
             if not all(img.shape == (hw, hw, 3) and np.isfinite(img).all()
                        for img in got):
                 raise AssertionError("bad served image")
@@ -2672,9 +2698,10 @@ def run_pretrained(state_dict: dict, device, k1_sites: int,
             torch.cuda.empty_cache()
 
             t0 = time.perf_counter()
+            eval_mark = tracing.mark()
             exp = cli.main(["-s", run, "-e", "--device", str(device)])
             eval_s = time.perf_counter() - t0
-            forwards += exp.trainer.model.unet_forwards
+            forwards = forwards_since(mark)
             torch.cuda.synchronize()
         last = json.loads(open(os.path.join(run, "metrics.jsonl"))
                           .readlines()[-1])
@@ -2685,7 +2712,8 @@ def run_pretrained(state_dict: dict, device, k1_sites: int,
         say(f"-e on the converted run dir: ssim {last['ssim']:.4f} psnr "
             f"{last['psnr']:.2f} at it {last['it']} ({exp.last_eval_count:.0f}"
             f" samples, DDIM {cfg.train.ddim_steps}) in "
-            f"{exp.eval_seconds[0]:.2f} s, {eval_s:.1f} s with the set-up")
+            f"{tracing.spans('eval.pass', after=eval_mark)[0].seconds:.2f} "
+            f"s, {eval_s:.1f} s with the set-up")
         del exp
         torch.cuda.empty_cache()
 
@@ -2762,6 +2790,7 @@ def run_formats(state_dict: dict, device, k1_sites: int,
         port = httpd.server_address[1]
         torch.cuda.synchronize()
         group_norm_act.launches = spatial_self_attention.launches = 0
+        mark = tracing.mark()
         t0 = time.perf_counter()
         for i, (name, blobs) in enumerate(files.items()):
             body = {"angle": 0.5 * i, "steps": FORMAT_STEPS,
@@ -2775,7 +2804,7 @@ def run_formats(state_dict: dict, device, k1_sites: int,
                                      f"{image.shape}")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        forwards = svc.model.unet_forwards
+        forwards = forwards_since(mark)
         launches = {"k1": group_norm_act.launches,
                     "k3": spatial_self_attention.launches}
         if forwards == 0 or launches != {"k1": k1_sites * forwards,
@@ -2783,11 +2812,14 @@ def run_formats(state_dict: dict, device, k1_sites: int,
             raise AssertionError(
                 f"formats launch counters {launches} != per-forward sites "
                 f"({k1_sites}, {k3_sites}) x {forwards} forwards")
+        refused = tracing.counters().get("serve.refused", 0)
         code, out = _post(port, {"angle": 0.0, "views": [
             base64.b64encode(b"not an image").decode()]})
         if code != 400 or "unrecognised" not in out.get("error", ""):
             raise AssertionError(f"an unrecognised view got HTTP {code} "
                                  f"{out}")
+        if tracing.counters().get("serve.refused", 0) != refused + 1:
+            raise AssertionError("the 400 was not counted as refused")
         say(f"served {len(files)} requests (one per format, {len(blobs)} "
             f"views each, DDIM {FORMAT_STEPS}) in {wall:.2f} s, each a "
             f"64 x 64 image; an unrecognised view: HTTP 400 "
@@ -2883,13 +2915,15 @@ def main() -> int:
     service.batch_log.clear()
     group_norm_act.launches = 0
     spatial_self_attention.launches = 0
-    service.model.unet_forwards = 0
+    mark = tracing.mark()
     t0 = time.perf_counter()
     results = serve_requests(
         service, [np.random.default_rng(SEED + i) for i in range(14)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    forwards = service.model.unet_forwards
+    forwards = forwards_since(mark)
+    say(f"serving spans: {span_summary(mark)}; counters "
+        f"{tracing.counters()}")
     launches = {"k1": group_norm_act.launches,
                 "k3": spatial_self_attention.launches}
     for img, _, sampler in results:

@@ -55,7 +55,7 @@ from viewfusion_tpu.serving import ViewFusionService as JaxService
 from viewfusion_tpu.training.checkpoint import Checkpoint as JaxCheckpoint
 from viewfusion_tpu.training.trainer import Experiment as JaxExperiment
 from viewfusion_tpu.training.trainer import ExperimentArgs as JaxArgs
-from viewfusion_tpu_torch import cli
+from viewfusion_tpu_torch import cli, tracing
 from viewfusion_tpu_torch.config import (Config, dump_yaml, load_config,
                                         parse_yaml)
 from viewfusion_tpu_torch.models import dit as dit_module
@@ -406,11 +406,11 @@ def test_dit_ancestral_chain_matches_jax(params, chain):
     want = jax.jit(jmodel.generate, static_argnames=("sample_num",))(
         params, key, data["y_cond"], COUNTS, data["angle"],
         y_t=data["y_t"], sample_num=sample_num)
-    before = port.unet_forwards
+    mark = tracing.mark()
     got = port.generate(*_args(data), y_t=torch.from_numpy(data["y_t"]),
                         sample_num=sample_num,
                         noise=_draws(jax.random.split(key)[1], T))
-    assert port.unet_forwards - before == T
+    assert len(tracing.spans("unet.forward", after=mark)) == T
     for name in ("y_t", "ret_arr", "weight_arr"):
         w = np.asarray(getattr(want, name))
         g = getattr(got, name).numpy()

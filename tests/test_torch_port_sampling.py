@@ -37,6 +37,7 @@ from viewfusion_tpu.config import Config as JaxConfig
 from viewfusion_tpu.models.unet import UNet as JaxUNet
 from viewfusion_tpu.models.view_fusion import ViewFusion as JaxViewFusion
 from viewfusion_tpu.models.view_fusion import view_mask as jax_view_mask
+from viewfusion_tpu_torch import tracing
 from viewfusion_tpu_torch.config import Config
 from viewfusion_tpu_torch.models.view_fusion import (ViewFusion,
                                                      view_mask)
@@ -158,6 +159,7 @@ def test_generate_matches_jax(setup, jax_generate):
     key, want = jax_generate
     port = _port(params)
     draws = _draws(jax.random.split(key)[1])
+    mark = tracing.mark()
     got = port.generate(*_args(data), y_t=torch.from_numpy(data["y_t"]),
                         sample_num=SAMPLE_NUM, noise=draws)
     frames = (T - 1) // (T // SAMPLE_NUM) + 1
@@ -168,7 +170,7 @@ def test_generate_matches_jax(setup, jax_generate):
         _close(getattr(got, name).numpy(), getattr(want, name))
     np.testing.assert_array_equal(got.ret_arr[:, 0].numpy(), data["y_t"])
     assert torch.equal(got.generated_samples, got.y_t)
-    assert port.unet_forwards == T
+    assert len(tracing.spans("unet.forward", after=mark)) == T
 
 
 @pytest.mark.parametrize("variant", ["no_capture", "no_weighting"])
@@ -241,14 +243,14 @@ def test_packed_rows_match_dense(setup):
                    for a in packed_indices(COUNTS))
     runs = []
     for idx in (None, packed):
-        before = port.unet_forwards
+        mark = tracing.mark()
         out = port.generate(*args, y_t=y_t, sample_num=SAMPLE_NUM,
                             noise=draws, packed_idx=idx)
         ddim = port.generate_ddim(*args, num_steps=4, y_t=y_t, noise=draws,
                                   packed_idx=idx)
         dpm = port.generate_dpm(*args, num_steps=3, y_t=y_t, noise=draws,
                                 sde=True, packed_idx=idx)
-        assert port.unet_forwards - before == T + 4 + 3
+        assert len(tracing.spans("unet.forward", after=mark)) == T + 4 + 3
         # logits of masked views are the UNet's in the dense layout and
         # 0 in the packed one; both give them zero weight
         mask = view_mask(args[1], N)[:, None, :, None, None, None]

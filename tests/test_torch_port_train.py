@@ -56,6 +56,7 @@ from viewfusion_tpu.ops.groupnorm import group_norm_act as jax_gn
 from viewfusion_tpu.training import trainer as jax_trainer
 from viewfusion_tpu.training.schedulers import lr_schedule as jax_lr_schedule
 from viewfusion_tpu.utils.torch_convert import convert_unet_state_dict
+from viewfusion_tpu_torch import tracing
 from viewfusion_tpu_torch.config import Config
 from viewfusion_tpu_torch.models.unet import ResnetBlocWithAttn, UNet
 from viewfusion_tpu_torch.models.view_fusion import ViewFusion
@@ -321,12 +322,13 @@ def test_dense_and_packed_losses_match_jax(jax_setup):
     port = ViewFusion.from_config(Config.from_dict(_raw()))
     port.unet.load_state_dict(unet_state_dict_from_jax(params))
     draws = _jax_draws(model, key)
+    mark = tracing.mark()
     with torch.no_grad():
         dense = _port_loss(port, batch, *draws, packed=False).item()
         packed = _port_loss(port, batch, *draws).item()
     assert abs(dense - want) <= 1e-6 * abs(want)
     assert abs(packed - dense) <= 1e-6 * abs(dense)
-    assert port.unet_forwards == 2
+    assert len(tracing.spans("unet.forward", after=mark)) == 2
 
 
 @pytest.fixture(scope="module")

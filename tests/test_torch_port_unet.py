@@ -20,6 +20,7 @@ from viewfusion_tpu.models.unet import UNet as JaxUNet
 from viewfusion_tpu.models.view_fusion import ViewFusion as JaxViewFusion
 from viewfusion_tpu.models.view_fusion import view_mask as jax_view_mask
 from viewfusion_tpu.utils.torch_convert import convert_unet_state_dict
+from viewfusion_tpu_torch import tracing
 from viewfusion_tpu_torch.config import Config
 from viewfusion_tpu_torch.models.unet import UNet
 from viewfusion_tpu_torch.models.view_fusion import (ViewFusion,
@@ -209,10 +210,11 @@ def test_generate_ddim_matches_jax(chain_setup, params, eta):
         y_t=y_t))
     _, k_scan = jax.random.split(rng_key)
     args, yt = _port_args(y_cond, angle, y_t)
+    mark = tracing.mark()
     got = port.generate_ddim(*args, num_steps=steps, eta=eta, y_t=yt,
                              noise=_jax_draws(k_scan, steps)).numpy()
     assert np.abs(got - want).max() <= 5e-5
-    assert port.unet_forwards >= steps
+    assert len(tracing.spans("unet.forward", after=mark)) == steps
 
 
 @pytest.mark.parametrize("sde", [False, True])

@@ -26,6 +26,8 @@ from typing import Dict, Optional
 
 import torch
 
+from viewfusion_tpu_torch import tracing
+
 __all__ = ["library", "check", "build_log", "dtype_code", "stream_ptr",
            "sm_count"]
 
@@ -129,19 +131,22 @@ def library() -> ctypes.CDLL:
             return _lib
         sources = sorted(_CSRC.glob("*.cu"))
         target = _BUILD / f"libvf_kernels-{_source_key()}.so"
-        if not target.exists():
-            t0 = time.perf_counter()
-            log = _build(sources, target)
-            _log = f"built {target.name} in {time.perf_counter() - t0:.1f} s\n{log}"
-        else:
-            _log = f"reused {target.name}"
-        lib = ctypes.CDLL(str(target))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.vf_error_string.argtypes = [ctypes.c_int]
-        lib.vf_error_string.restype = ctypes.c_char_p
+        built = not target.exists()
+        with tracing.span("setup.library", built=int(built)):
+            if built:
+                t0 = time.perf_counter()
+                log = _build(sources, target)
+                _log = (f"built {target.name} in "
+                        f"{time.perf_counter() - t0:.1f} s\n{log}")
+            else:
+                _log = f"reused {target.name}"
+            lib = ctypes.CDLL(str(target))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.vf_error_string.argtypes = [ctypes.c_int]
+            lib.vf_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
 

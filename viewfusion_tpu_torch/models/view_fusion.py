@@ -44,6 +44,7 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from viewfusion_tpu_torch import tracing
 from viewfusion_tpu_torch.config import Config
 from viewfusion_tpu_torch.models.dit import DiT
 from viewfusion_tpu_torch.models.unet import UNet
@@ -152,8 +153,8 @@ class ViewFusion:
     """The denoiser, the active schedule and the composition flags.
 
     ``unet`` holds the denoiser, a :class:`UNet` or a :class:`DiT` (same
-    call contract); ``unet_forwards`` counts its calls (one per sampler
-    step)."""
+    call contract).  Each denoiser call is a ``unet.forward`` span and
+    each step of a sampler a ``sampler.step`` span (``tracing.py``)."""
 
     def __init__(self, unet: Union[UNet, DiT], schedule: DiffusionSchedule,
                  weighting_train: bool = True,
@@ -162,7 +163,6 @@ class ViewFusion:
         self.schedule = schedule
         self.weighting_train = weighting_train
         self.weighting_inference = weighting_inference
-        self.unet_forwards = 0
         self._gammas = {}  # the gamma table on each device it was used on
 
     @classmethod
@@ -198,23 +198,23 @@ class ViewFusion:
         b, n, h, w, _ = y_cond.shape
         unet = self.unet if denoiser is None else denoiser
         kw = {} if dropout is None else {"dropout": dropout}
-        if packed_idx is not None:
-            sample_idx, view_idx = packed_idx
-            x = torch.cat([y_cond[sample_idx, view_idx],
-                           y_target[sample_idx].to(y_cond.dtype)], dim=-1)
-            out = unet(x, angle.reshape(-1)[sample_idx],
-                       noise_level[sample_idx], **kw)
-            self.unet_forwards += 1
-            dense = out.new_zeros((b * n,) + out.shape[1:])
-            dense = dense.index_copy(0, sample_idx * n + view_idx, out)
-            return dense.reshape(b, n, h, w, -1)
-        y_rep = y_target[:, None].expand(b, n, h, w, y_target.shape[-1])
-        x = torch.cat([y_cond, y_rep.to(y_cond.dtype)], dim=-1)
-        level_rep = noise_level[:, None].expand(b, n).reshape(-1)
-        angle_rep = angle.reshape(-1)[:, None].expand(b, n).reshape(-1)
-        out = unet(x.reshape(b * n, h, w, -1), angle_rep, level_rep, **kw)
-        self.unet_forwards += 1
-        return out.reshape(b, n, h, w, -1)
+        with tracing.span("unet.forward"):
+            if packed_idx is not None:
+                sample_idx, view_idx = packed_idx
+                x = torch.cat([y_cond[sample_idx, view_idx],
+                               y_target[sample_idx].to(y_cond.dtype)], dim=-1)
+                out = unet(x, angle.reshape(-1)[sample_idx],
+                           noise_level[sample_idx], **kw)
+                dense = out.new_zeros((b * n,) + out.shape[1:])
+                dense = dense.index_copy(0, sample_idx * n + view_idx, out)
+                return dense.reshape(b, n, h, w, -1)
+            y_rep = y_target[:, None].expand(b, n, h, w, y_target.shape[-1])
+            x = torch.cat([y_cond, y_rep.to(y_cond.dtype)], dim=-1)
+            level_rep = noise_level[:, None].expand(b, n).reshape(-1)
+            angle_rep = angle.reshape(-1)[:, None].expand(b, n).reshape(-1)
+            out = unet(x.reshape(b * n, h, w, -1), angle_rep, level_rep,
+                       **kw)
+            return out.reshape(b, n, h, w, -1)
 
     @staticmethod
     def compose(unet_out, mask, weighting: bool):
@@ -433,9 +433,10 @@ class ViewFusion:
         for t in ts:
             t = int(t)
             z = None if noise is None else noise[T - 1 - t]
-            y, logits, weights = self.p_sample(
-                carry.y_t, y_cond, mask, angle, t, packed_idx, z,
-                carry.generator)
+            with tracing.span("sampler.step"):
+                y, logits, weights = self.p_sample(
+                    carry.y_t, y_cond, mask, angle, t, packed_idx, z,
+                    carry.generator)
             carry.y_t = y
             if t % inter == 0:
                 carry.ret_arr[carry.frame_idx + 1] = y
@@ -495,23 +496,27 @@ class ViewFusion:
         y_cond, y_t, mask, angle = self._start(y_cond, view_count, angle,
                                                y_t, generator)
         for i, (t, t_prev) in enumerate(zip(ts, ts_prev)):
-            gamma_t = sched.gammas[t]
-            gamma_prev = sched.gammas[t_prev] if t_prev >= 0 else _f32(1.0)
-            eps = self._eps(y_cond, y_t, t, mask, angle, packed_idx)
-            y0 = self._x0(y_t, eps, t)
-            # re-derive eps from the clipped y0, as ancestral sampling does
-            eps = ((y_t - float(np.sqrt(gamma_t)) * y0)
-                   / float(np.sqrt(_f32(1.0) - gamma_t)))
-            sigma = _f32(eta) * np.sqrt(
-                (_f32(1.0) - gamma_prev) / (_f32(1.0) - gamma_t)
-                * (_f32(1.0) - gamma_t / gamma_prev))
-            dir_coef = np.sqrt(np.maximum(
-                _f32(1.0) - gamma_prev - sigma ** 2, _f32(0.0)))
-            y_next = float(np.sqrt(gamma_prev)) * y0 + float(dir_coef) * eps
-            if t_prev >= 0 and sigma != 0:
-                y_next = y_next + float(sigma) * self._noise(
-                    noise, i, y_t, generator)
-            y_t = y_next
+            with tracing.span("sampler.step"):
+                gamma_t = sched.gammas[t]
+                gamma_prev = (sched.gammas[t_prev] if t_prev >= 0
+                              else _f32(1.0))
+                eps = self._eps(y_cond, y_t, t, mask, angle, packed_idx)
+                y0 = self._x0(y_t, eps, t)
+                # re-derive eps from the clipped y0, as ancestral
+                # sampling does
+                eps = ((y_t - float(np.sqrt(gamma_t)) * y0)
+                       / float(np.sqrt(_f32(1.0) - gamma_t)))
+                sigma = _f32(eta) * np.sqrt(
+                    (_f32(1.0) - gamma_prev) / (_f32(1.0) - gamma_t)
+                    * (_f32(1.0) - gamma_t / gamma_prev))
+                dir_coef = np.sqrt(np.maximum(
+                    _f32(1.0) - gamma_prev - sigma ** 2, _f32(0.0)))
+                y_next = (float(np.sqrt(gamma_prev)) * y0
+                          + float(dir_coef) * eps)
+                if t_prev >= 0 and sigma != 0:
+                    y_next = y_next + float(sigma) * self._noise(
+                        noise, i, y_t, generator)
+                y_t = y_next
         return y_t
 
     @torch.no_grad()
@@ -536,30 +541,31 @@ class ViewFusion:
                                              y_t, generator)
         x0_prev, h_prev = None, _f32(1.0)
         for i, (t, t_next) in enumerate(zip(ts, ts_next)):
-            x0 = self._x0(y, self._eps(y_cond, y, t, mask, angle,
-                                       packed_idx), t)
-            g_cur = sched.gammas[t]
-            g_next = sched.gammas[max(t_next, 0)]
-            hh = _lam(g_next) - _lam(g_cur)
-            if x0_prev is None:  # first step: first order
-                d = x0
-            else:
-                c = hh / (_f32(2.0) * h_prev)
-                d = float(_f32(1.0) + c) * x0 - float(c) * x0_prev
-            sigma_cur = np.sqrt(_f32(1.0) - g_cur)
-            sigma_next = np.sqrt(_f32(1.0) - g_next)
-            alpha_next = np.sqrt(g_next)
-            if t_next < 0:
-                y = x0
-            elif sde:
-                decay = np.exp(-hh)
-                mix = -np.expm1(_f32(-2.0) * hh)  # 1 - e^{-2h}
-                z = self._noise(noise, i, y, generator)
-                y = (float(sigma_next / sigma_cur * decay) * y
-                     + float(alpha_next * mix) * d
-                     + float(sigma_next * np.sqrt(mix)) * z)
-            else:
-                y = (float(sigma_next / sigma_cur) * y
-                     - float(alpha_next * np.expm1(-hh)) * d)
-            x0_prev, h_prev = x0, hh
+            with tracing.span("sampler.step"):
+                x0 = self._x0(y, self._eps(y_cond, y, t, mask, angle,
+                                           packed_idx), t)
+                g_cur = sched.gammas[t]
+                g_next = sched.gammas[max(t_next, 0)]
+                hh = _lam(g_next) - _lam(g_cur)
+                if x0_prev is None:  # first step: first order
+                    d = x0
+                else:
+                    c = hh / (_f32(2.0) * h_prev)
+                    d = float(_f32(1.0) + c) * x0 - float(c) * x0_prev
+                sigma_cur = np.sqrt(_f32(1.0) - g_cur)
+                sigma_next = np.sqrt(_f32(1.0) - g_next)
+                alpha_next = np.sqrt(g_next)
+                if t_next < 0:
+                    y = x0
+                elif sde:
+                    decay = np.exp(-hh)
+                    mix = -np.expm1(_f32(-2.0) * hh)  # 1 - e^{-2h}
+                    z = self._noise(noise, i, y, generator)
+                    y = (float(sigma_next / sigma_cur * decay) * y
+                         + float(alpha_next * mix) * d
+                         + float(sigma_next * np.sqrt(mix)) * z)
+                else:
+                    y = (float(sigma_next / sigma_cur) * y
+                         - float(alpha_next * np.expm1(-hh)) * d)
+                x0_prev, h_prev = x0, hh
         return y

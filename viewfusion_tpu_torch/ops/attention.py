@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from viewfusion_tpu_torch import _native
+from viewfusion_tpu_torch import _native, tracing
 
 __all__ = ["spatial_self_attention", "spatial_self_attention_reference",
            "spatial_self_attention_backward", "attention_plan"]
@@ -132,3 +132,4 @@ def spatial_self_attention(q, k, v, scale):
 
 
 spatial_self_attention.launches = 0
+tracing.watch("k3.launches", spatial_self_attention, "launches")

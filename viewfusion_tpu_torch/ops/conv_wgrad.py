@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from viewfusion_tpu_torch import _native
+from viewfusion_tpu_torch import _native, tracing
 
 __all__ = ["conv3x3_wgrad", "conv3x3_wgrad_reference", "conv3x3",
            "wgrad_plan"]
@@ -205,3 +205,6 @@ conv3x3_wgrad.launches = 0
 # copied to NHWC rows before K4
 conv3x3.input_copies = 0
 conv3x3.grad_copies = 0
+tracing.watch("k4.launches", conv3x3_wgrad, "launches")
+tracing.watch("conv3x3.input_copies", conv3x3, "input_copies")
+tracing.watch("conv3x3.grad_copies", conv3x3, "grad_copies")

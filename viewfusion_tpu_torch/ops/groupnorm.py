@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from viewfusion_tpu_torch import _native
+from viewfusion_tpu_torch import _native, tracing
 
 __all__ = ["group_norm_act", "group_norm_act_reference",
            "group_norm_act_backward", "group_norm_act_backward_reference",
@@ -374,3 +374,6 @@ group_norm_act_backward.launches = 0
 # upstream gradients that arrived in another layout and were copied to
 # contiguous rows before K2
 group_norm_act_backward.grad_copies = 0
+tracing.watch("k1.launches", group_norm_act, "launches")
+tracing.watch("k2.launches", group_norm_act_backward, "launches")
+tracing.watch("k2.grad_copies", group_norm_act_backward, "grad_copies")

@@ -8,7 +8,11 @@
     first so a minority bucket is never starved by majority traffic;
   * "ddim" (default, eta=1), "dpm" and "dpm_sde" samplers; abandoned
     requests are skipped, client input errors map to 400s, body size and
-    step counts are bounded.
+    step counts are bounded;
+  * each request's decode, queue wait and encode, and each batch's
+    assembly, copies and sampler steps, are spans of ``tracing.py``
+    (keyed by request and batch id); refused, timed-out and abandoned
+    requests are counted there.
 
 Usage:
     python -m viewfusion_tpu_torch.serving -s <run-dir> --port 8000
@@ -31,6 +35,7 @@ from __future__ import annotations
 import argparse
 import base64
 import io
+import itertools
 import json
 import os
 import threading
@@ -38,11 +43,12 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from viewfusion_tpu_torch import tracing
 from viewfusion_tpu_torch.config import Config, load_config
 from viewfusion_tpu_torch.models.unet import cast_matmul_weights_
 from viewfusion_tpu_torch.models.view_fusion import ViewFusion
@@ -74,6 +80,8 @@ class _Request:
     event: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
     error: Optional[str] = None
+    queued: Any = None        # its open serve.queue span
+    popped_ns: int = 0        # when the worker took it into a batch
 
     @property
     def abandoned(self) -> bool:
@@ -156,10 +164,11 @@ class ViewFusionService:
                default_steps, request_timeout, max_views, device):
         self.device = _resolve_device(device)
         self.config = config
-        self.model = ViewFusion.from_config(config)
-        self.model.unet.load_state_dict(state_dict)
-        self.model.unet.to(self.device).eval()
-        cast_matmul_weights_(self.model.unet, self.model.unet.dtype)
+        with tracing.span("setup.model"):
+            self.model = ViewFusion.from_config(config)
+            self.model.unet.load_state_dict(state_dict)
+            self.model.unet.to(self.device).eval()
+            cast_matmul_weights_(self.model.unet, self.model.unet.dtype)
         self.n_max = max_views or config.data.max_views
         self.image_size = config.denoiser.image_size
         self.batch_size = batch_size
@@ -171,7 +180,8 @@ class ViewFusionService:
         # bucket whose HEAD request has waited longest (see _run)
         self._cond = threading.Condition()
         self._buckets: "dict[tuple, deque[_Request]]" = {}
-        self._counter = 0
+        self._counter = 0                       # batch ids
+        self._request_ids = itertools.count(1)  # the HTTP requests' ids
         # (steps, sampler, requests, seconds) of the latest device batches
         self.batch_log: "deque[tuple]" = deque(maxlen=1024)
         self.warmed_steps: List[tuple] = []
@@ -211,14 +221,16 @@ class ViewFusionService:
                 raise ValueError(
                     f"warmup steps must be in [1, {self.max_steps}], "
                     f"got {steps}")
-            out = self._sample(
-                sampler,
-                torch.zeros((b, self.n_max, hw, hw, 3), device=self.device),
-                torch.ones((b,), dtype=torch.int64, device=self.device),
-                torch.zeros((b,), device=self.device), steps,
-                torch.Generator(device=self.device).manual_seed(0))
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            with tracing.span("setup.warmup", steps=steps):
+                out = self._sample(
+                    sampler,
+                    torch.zeros((b, self.n_max, hw, hw, 3),
+                                device=self.device),
+                    torch.ones((b,), dtype=torch.int64, device=self.device),
+                    torch.zeros((b,), device=self.device), steps,
+                    torch.Generator(device=self.device).manual_seed(0))
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
             del out
             self.warmed_steps.append((steps, sampler))
 
@@ -228,7 +240,8 @@ class ViewFusionService:
                timeout: Optional[float] = None,
                sampler: str = "ddim") -> np.ndarray:
         """Blocking generate; thread-safe.  Raises ClientError on invalid
-        input (HTTP layer maps it to 400)."""
+        input (HTTP layer maps it to 400).  The request's wait in the
+        queue is a ``serve.queue`` span under the caller's open span."""
         cond = np.asarray(cond)
         if cond.ndim != 4 or cond.shape[-1] != 3:
             raise ClientError(f"cond must be (N, H, W, 3), got {cond.shape}")
@@ -257,6 +270,7 @@ class ViewFusionService:
         req = _Request(cond=cond.astype(np.float32), angle=angle,
                        steps=steps, sampler=sampler,
                        deadline=time.monotonic() + wait)
+        req.queued = tracing.begin("serve.queue", stack=False)
         with self._cond:
             self._buckets.setdefault((steps, sampler), deque()).append(req)
             self._cond.notify()
@@ -278,7 +292,7 @@ class ViewFusionService:
                     for k in list(self._buckets):
                         dq = self._buckets[k]
                         while dq and dq[0].abandoned:
-                            dq.popleft()
+                            self._abandon(dq.popleft())
                         if not dq:
                             del self._buckets[k]
                     if self._buckets:
@@ -297,38 +311,72 @@ class ViewFusionService:
                          for _ in range(min(self.batch_size, len(dq)))]
                 if not dq:
                     del self._buckets[key]
+            popped = time.perf_counter_ns()
+            for r in batch:
+                r.popped_ns = popped
             self._generate(batch, *key)
+
+    @staticmethod
+    def _abandon(req: _Request) -> None:
+        tracing.count("serve.abandoned")
+        tracing.end(req.queued)
 
     def _generate(self, reqs: List[_Request], steps: int,
                   sampler: str = "ddim") -> None:
-        reqs = [r for r in reqs if not r.abandoned]
+        live = []
+        for r in reqs:
+            if r.abandoned:
+                self._abandon(r)
+            else:
+                live.append(r)
+        reqs = live
         if not reqs:
             return
+        self._counter += 1
+        bid = self._counter  # the batch's id, and its generator's seed
+        for r in reqs:
+            tracing.end(r.queued, r.popped_ns, batch=bid)
         b, hw = self.batch_size, self.image_size
-        cond = np.zeros((b, self.n_max, hw, hw, 3), np.float32)
-        counts = np.ones((b,), np.int64)
-        angles = np.zeros((b,), np.float32)
-        for i in range(b):
-            r = reqs[min(i, len(reqs) - 1)]  # pad with the last request
-            counts[i] = r.cond.shape[0]
-            cond[i, : counts[i]] = r.cond
-            angles[i] = r.angle
+        with tracing.span("serve.assemble", key=bid):
+            cond = np.zeros((b, self.n_max, hw, hw, 3), np.float32)
+            counts = np.ones((b,), np.int64)
+            angles = np.zeros((b,), np.float32)
+            for i in range(b):
+                r = reqs[min(i, len(reqs) - 1)]  # pad with the last request
+                counts[i] = r.cond.shape[0]
+                cond[i, : counts[i]] = r.cond
+                angles[i] = r.angle
+        # serve.batch and batch_log share their two clock readings
+        t0, t1 = time.perf_counter_ns(), None
+        span = tracing.begin(
+            "serve.batch", key=bid, start=t0,
+            request_ids=tuple(r.queued.key for r in reqs
+                              if r.queued is not None
+                              and r.queued.key is not None),
+            requests=len(reqs), views=int(counts[:len(reqs)].sum()),
+            rows=b * self.n_max)
         try:
-            t0 = time.perf_counter()
-            self._counter += 1
             gen = torch.Generator(device=self.device).manual_seed(
-                0x5E11 + self._counter)
+                0x5E11 + bid)
             dev = self.device
-            out = self._sample(sampler, torch.from_numpy(cond).to(dev),
-                               torch.from_numpy(counts).to(dev),
-                               torch.from_numpy(angles).to(dev), steps, gen)
-            images = np.clip(out.cpu().numpy(), 0.0, 1.0)
+            with tracing.span("serve.h2d"):
+                args = (torch.from_numpy(cond).to(dev),
+                        torch.from_numpy(counts).to(dev),
+                        torch.from_numpy(angles).to(dev))
+            out = self._sample(sampler, *args, steps, gen)
+            with tracing.span("serve.copy_back"):
+                out = out.cpu()
+            images = np.clip(out.numpy(), 0.0, 1.0)
+            t1 = time.perf_counter_ns()
             self.batch_log.append((steps, sampler, len(reqs),
-                                   time.perf_counter() - t0))
+                                   (t1 - t0) / 1e9))
+            tracing.end(span, t1)
             for i, r in enumerate(reqs):
                 r.result = images[i]
                 r.event.set()
         except Exception as e:  # surface device errors to callers
+            if t1 is None:
+                tracing.end(span)
             for r in reqs:
                 r.error = str(e)
                 r.event.set()
@@ -399,26 +447,37 @@ def make_server(service: ViewFusionService, host: str = "0.0.0.0",
             if self.path != "/generate":
                 self._send(404, {"error": "not found"})
                 return
+            with tracing.span("serve.request",
+                              key=next(service._request_ids)):
+                self._post_generate()
+
+        def _post_generate(self):
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 if length > MAX_BODY_BYTES:
                     self._send(413, {"error": "request body too large"})
                     return
-                payload = json.loads(self.rfile.read(length))
-                if not isinstance(payload, dict):
-                    raise ClientError("body must be a JSON object")
-                if "angle" not in payload:
-                    raise ClientError('"angle" is required')
-                cond = _decode_views(payload, service.image_size)
+                body = self.rfile.read(length)
+                with tracing.span("serve.decode"):
+                    payload = json.loads(body)
+                    if not isinstance(payload, dict):
+                        raise ClientError("body must be a JSON object")
+                    if "angle" not in payload:
+                        raise ClientError('"angle" is required')
+                    cond = _decode_views(payload, service.image_size)
                 img = service.submit(
                     cond, payload["angle"], payload.get("steps"),
                     sampler=payload.get("sampler", "ddim"))
-                png = encode_png((img * 255).astype(np.uint8))
-                self._send(200, {"image": base64.b64encode(png).decode()})
+                with tracing.span("serve.encode"):
+                    png = base64.b64encode(
+                        encode_png((img * 255).astype(np.uint8))).decode()
+                self._send(200, {"image": png})
             except (ClientError, KeyError, TypeError,
                     json.JSONDecodeError) as e:
+                tracing.count("serve.refused")
                 self._send(400, {"error": str(e)})
             except TimeoutError as e:
+                tracing.count("serve.timed_out")
                 self._send(503, {"error": str(e)})
             except Exception as e:  # noqa: BLE001
                 self._send(500, {"error": str(e)})

@@ -81,6 +81,7 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
+from viewfusion_tpu_torch import tracing
 from viewfusion_tpu_torch.config import Config, load_config
 from viewfusion_tpu_torch.data.nmr import Batcher, create_nmr_stream, prefetch
 from viewfusion_tpu_torch.models.view_fusion import (GenerateOutput,
@@ -199,57 +200,58 @@ class Trainer:
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  seed: Optional[int] = None,
                  mesh: Optional[RankGrid] = None):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Trainer: no CUDA device; pass device='cpu' "
-                               "to train on the CPU")
-        tc = config.train
-        seed = tc.seed if seed is None else seed
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            self.model = ViewFusion.from_config(config)
-        if state_dict is not None:
-            self.model.unet.load_state_dict(state_dict)
-        self.model.unet.to(device).train()
-        self.config, self.device = config, device
-        self.mesh = mesh if mesh is not None else make_mesh(
-            MeshSpec(tc.mesh_data, tc.mesh_view),
-            batch_rows=config.data.batch_size // tc.grad_accum)
-        # what the train step calls: DDP (and the view split) over the
-        # bare UNet under a process group, else the UNet itself
-        self._ddp = self._denoiser = None
-        if dist.is_initialized():
-            self._ddp = self._denoiser = DistributedDataParallel(
-                self.model.unet, broadcast_buffers=False)
-            if self.mesh.view > 1:
-                self._denoiser = _ViewSplit(self._ddp, self.mesh)
-        self.params = list(self.model.unet.parameters())
-        self.lr_fn = lr_schedule(peak_lr=tc.peak_lr, peak_it=tc.lr_warmup,
-                                 decay_rate=tc.decay_rate,
-                                 decay_it=tc.decay_it)
-        self.zero1 = None
-        if tc.shard_opt_state:
-            named = list(self.model.unet.named_parameters())
-            self.zero1 = Zero1Adam(named, jax_layout_axes(
-                [n for n, _ in named]), self.mesh)
-            self.optimizer = self.zero1.optimizer
-        else:
-            self.optimizer = torch.optim.Adam(self.params, lr=0.0,
-                                              betas=(0.9, 0.999), eps=1e-8)
-        # the EMA shadow is a second UNet, so that generation can run on
-        # it (_infer_model); self.ema lists its parameters
-        self.ema, self.ema_model = None, None
-        if tc.ema_decay > 0:
-            shadow = copy.deepcopy(self.model.unet).requires_grad_(False)
-            self.ema = list(shadow.parameters())
-            m = self.model
-            self.ema_model = ViewFusion(
-                shadow, m.schedule, weighting_train=m.weighting_train,
-                weighting_inference=m.weighting_inference)
-        self.step = 0  # updates made
-        self.generator = torch.Generator(device=device).manual_seed(seed)
-        self.cond_key = "relative_cond" if config.relative else "cond"
-        self.angle_key = "relative_angle" if config.relative else "angle"
+        with tracing.span("setup.model"):
+            device = torch.device(device)
+            if device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("Trainer: no CUDA device; pass "
+                                   "device='cpu' to train on the CPU")
+            tc = config.train
+            seed = tc.seed if seed is None else seed
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                self.model = ViewFusion.from_config(config)
+            if state_dict is not None:
+                self.model.unet.load_state_dict(state_dict)
+            self.model.unet.to(device).train()
+            self.config, self.device = config, device
+            self.mesh = mesh if mesh is not None else make_mesh(
+                MeshSpec(tc.mesh_data, tc.mesh_view),
+                batch_rows=config.data.batch_size // tc.grad_accum)
+            # what the train step calls: DDP (and the view split) over the
+            # bare UNet under a process group, else the UNet itself
+            self._ddp = self._denoiser = None
+            if dist.is_initialized():
+                self._ddp = self._denoiser = DistributedDataParallel(
+                    self.model.unet, broadcast_buffers=False)
+                if self.mesh.view > 1:
+                    self._denoiser = _ViewSplit(self._ddp, self.mesh)
+            self.params = list(self.model.unet.parameters())
+            self.lr_fn = lr_schedule(peak_lr=tc.peak_lr, peak_it=tc.lr_warmup,
+                                     decay_rate=tc.decay_rate,
+                                     decay_it=tc.decay_it)
+            self.zero1 = None
+            if tc.shard_opt_state:
+                named = list(self.model.unet.named_parameters())
+                self.zero1 = Zero1Adam(named, jax_layout_axes(
+                    [n for n, _ in named]), self.mesh)
+                self.optimizer = self.zero1.optimizer
+            else:
+                self.optimizer = torch.optim.Adam(self.params, lr=0.0,
+                                                  betas=(0.9, 0.999), eps=1e-8)
+            # the EMA shadow is a second UNet, so that generation can run on
+            # it (_infer_model); self.ema lists its parameters
+            self.ema, self.ema_model = None, None
+            if tc.ema_decay > 0:
+                shadow = copy.deepcopy(self.model.unet).requires_grad_(False)
+                self.ema = list(shadow.parameters())
+                m = self.model
+                self.ema_model = ViewFusion(
+                    shadow, m.schedule, weighting_train=m.weighting_train,
+                    weighting_inference=m.weighting_inference)
+            self.step = 0  # updates made
+            self.generator = torch.Generator(device=device).manual_seed(seed)
+            self.cond_key = "relative_cond" if config.relative else "cond"
+            self.angle_key = "relative_angle" if config.relative else "angle"
 
     def _put(self, a) -> torch.Tensor:
         if not isinstance(a, torch.Tensor):
@@ -257,10 +259,16 @@ class Trainer:
             a = torch.from_numpy(a if a.flags.writeable else a.copy())
         return a.to(self.device)
 
-    def _microbatch_loss(self, mb: Dict[str, Any], noise, sample_gammas,
-                         masks=None):
+    def _microbatch_put(self, mb: Dict[str, Any], noise, sample_gammas):
+        """A microbatch's arrays, and the draws given for it, on the
+        device."""
         put = self._put
-        mb = {k: put(v) for k, v in mb.items()}
+        return ({k: put(v) for k, v in mb.items()},
+                None if noise is None else put(noise),
+                None if sample_gammas is None else put(sample_gammas))
+
+    def _microbatch_loss(self, mb: Dict[str, torch.Tensor], noise,
+                         sample_gammas, masks=None):
         if "img" in mb:  # the fused feed: slices and a same-size bitcast
             mb = fused_feed.unpack_batch(mb)
         target = norm_img(mb["target"])
@@ -275,9 +283,9 @@ class Trainer:
                                     self.model.training_draws(
                                         (b * mesh.data,) + target.shape[1:],
                                         self.generator, self.device))
-        kw = dict(noise=None if noise is None else put(noise).float(),
+        kw = dict(noise=None if noise is None else noise.float(),
                   sample_gammas=(None if sample_gammas is None
-                                 else put(sample_gammas).float()),
+                                 else sample_gammas.float()),
                   generator=self.generator, denoiser=self._denoiser)
         if self.config.train.packed_views:
             return self.model.loss_packed(
@@ -296,53 +304,67 @@ class Trainer:
         Under grad accumulation a batch value may also be a list of the
         K microbatches' arrays (packed rows differ in length between a
         rank's microbatches).  Returns the (mean) loss over all ranks, a
-        detached f32 scalar on the device."""
-        n_micro = self.config.train.grad_accum
-        for p in self.params:
-            p.grad = None
-        self._dropout_gen = self.generator
-        if self.mesh.world > 1 and getattr(self.model.unet, "dropout", 0) > 0:
-            state = np.random.SeedSequence([self.generator.initial_seed(),
-                                            self.step, self.mesh.rank])
-            self._dropout_gen = torch.Generator(device=self.device)
-            self._dropout_gen.manual_seed(int(state.generate_state(1)[0]))
-        total = None
-        for k in range(n_micro):
-            pick = (lambda a: a) if n_micro == 1 else \
-                (lambda a: None if a is None else a[k])
-            last = k == n_micro - 1
-            with (self._ddp.no_sync() if self._ddp is not None and not last
-                  else contextlib.nullcontext()):
-                loss = self._microbatch_loss(
-                    {key: pick(v) for key, v in batch.items()}, pick(noise),
-                    pick(sample_gammas), pick(masks))
-                loss.backward()
-            total = loss.detach() if total is None else total + loss.detach()
-        if n_micro > 1:
+        detached f32 scalar on the device.  The step is a ``train.step``
+        span keyed by the updates made before it, its phases spans under
+        it."""
+        with tracing.span("train.step", key=self.step):
+            n_micro = self.config.train.grad_accum
             for p in self.params:
-                p.grad.div_(n_micro)
-            total = total / n_micro
-        self.apply_update()
-        if self.mesh.world > 1:
-            dist.all_reduce(total)
-            total /= self.mesh.world
-        return total
+                p.grad = None
+            self._dropout_gen = self.generator
+            if (self.mesh.world > 1
+                    and getattr(self.model.unet, "dropout", 0) > 0):
+                state = np.random.SeedSequence(
+                    [self.generator.initial_seed(), self.step,
+                     self.mesh.rank])
+                self._dropout_gen = torch.Generator(device=self.device)
+                self._dropout_gen.manual_seed(int(state.generate_state(1)[0]))
+            total = None
+            for k in range(n_micro):
+                pick = (lambda a: a) if n_micro == 1 else \
+                    (lambda a: None if a is None else a[k])
+                last = k == n_micro - 1
+                with (self._ddp.no_sync() if self._ddp is not None and not last
+                      else contextlib.nullcontext()):
+                    with tracing.span("train.h2d"):
+                        mb, mb_noise, mb_gammas = self._microbatch_put(
+                            {key: pick(v) for key, v in batch.items()},
+                            pick(noise), pick(sample_gammas))
+                    with tracing.span("train.forward"):
+                        loss = self._microbatch_loss(mb, mb_noise, mb_gammas,
+                                                     pick(masks))
+                    with tracing.span("train.backward"):
+                        loss.backward()
+                total = (loss.detach() if total is None
+                         else total + loss.detach())
+            if n_micro > 1:
+                for p in self.params:
+                    p.grad.div_(n_micro)
+                total = total / n_micro
+            self.apply_update()
+            if self.mesh.world > 1:
+                with tracing.span("train.allreduce"):
+                    dist.all_reduce(total)
+                    total /= self.mesh.world
+            return total
 
     @torch.no_grad()
     def apply_update(self) -> None:
         """One Adam update (and EMA) from the gradients in ``.grad``."""
         lr = self.lr_fn(self.step)
-        if self.zero1 is not None:
-            self.zero1.step(lr)
-        else:
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
-            self.optimizer.step()
+        with tracing.span("train.optimizer"):
+            if self.zero1 is not None:
+                self.zero1.step(lr)
+            else:
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.step()
         if self.ema is not None:
-            decay = self.config.train.ema_decay
-            torch._foreach_mul_(self.ema, decay)
-            torch._foreach_add_(self.ema,
-                                torch._foreach_mul(self.params, 1.0 - decay))
+            with tracing.span("train.ema"):
+                decay = self.config.train.ema_decay
+                torch._foreach_mul_(self.ema, decay)
+                torch._foreach_add_(self.ema, torch._foreach_mul(
+                    self.params, 1.0 - decay))
         self.step += 1
 
     def adam_moments(self):
@@ -560,9 +582,6 @@ class Experiment:
         self.relative = cfg.relative
         self.cond_key = self.trainer.cond_key
         self.angle_key = self.trainer.angle_key
-        # seconds of each eval pass and host times of the train steps
-        self.eval_seconds: List[float] = []
-        self.step_ends: List[float] = []
         self.last_profile = None  # (profiler, wall seconds, steps)
         self._prof = None
         self._init_model()
@@ -790,8 +809,11 @@ class Experiment:
 
         threading.Thread(target=worker, daemon=True,
                          name="device-feed").start()
+        it = first_it
         while True:
-            item = q.get()
+            with tracing.span("experiment.feed_wait", key=it):
+                item = q.get()
+            it += 1
             if item is stop:
                 return
             if isinstance(item, BaseException):
@@ -930,7 +952,6 @@ class Experiment:
                     [cfg.seed, self.it]).generate_state(1)[0]))
                 acc_loss.append(self.trainer.train_step(step_batch))
                 self.time_elapsed += time.perf_counter() - t0
-                self.step_ends.append(time.perf_counter())
 
                 if (cfg.checkpoint_every > 0
                         and self.it % cfg.checkpoint_every == 0
@@ -1007,10 +1028,9 @@ class Experiment:
     def eval(self) -> None:
         """Full-generation metric eval and the best-model files."""
         print("Running metric evaluation...")
-        t0 = time.perf_counter()
-        ssim, psnr, count = self._eval_pass(
-            self.val_loader, salt_base=1_000_000_000, dump=True)
-        self.eval_seconds.append(time.perf_counter() - t0)
+        with tracing.span("eval.pass", key=self.it):
+            ssim, psnr, count = self._eval_pass(
+                self.val_loader, salt_base=1_000_000_000, dump=True)
         self.last_eval_count = count
         self.log_dict["ssim"] = ssim
         self.log_dict["psnr"] = psnr

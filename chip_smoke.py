@@ -153,6 +153,15 @@ Phases (any failure raises and exits non-zero without the final line):
      forward; each format's host decode ms per view; compute_metrics on
      the card over the JPEG fixtures equals it over their expected arrays
      as PNGs.
+ 27. the served UNet forward replayed as a CUDA graph: a
+     ViewFusionService at the paper config on phase 5's weights; its
+     DDIM 50 warm-up captures the forward at the served 8 x 6 rows
+     exactly once (unet.graph_captures 1, then 48 replays); two full
+     batches, every forward of which is a replay (the ``graphed``
+     attribute of each ``unet.forward`` span), with exactly 69 K1 and 8
+     K3 launches per forward; these launches are counted apart from the
+     other paths'.  (Every path above that samples without autograd
+     replays its forwards the same way; their counts are unchanged.)
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 
@@ -2267,12 +2276,17 @@ def _child_steps(ref_dir: str) -> dict:
 @contextlib.contextmanager
 def unet_rows():
     """Count the UNet forwards by (rows, grad enabled) while the block
-    runs."""
+    runs: the calls that run the module (not a CUDA graph's capture,
+    which runs nothing), and the replayed graphs by their
+    ``unet.forward`` spans (a replay does not call the module; it runs
+    without autograd)."""
     rows = Counter()
     forward = UNet.forward
+    mark = tracing.mark()
 
     def counted(self, x, *a, **kw):
-        rows[(int(x.shape[0]), torch.is_grad_enabled())] += 1
+        if not torch.cuda.is_current_stream_capturing():
+            rows[(int(x.shape[0]), torch.is_grad_enabled())] += 1
         return forward(self, x, *a, **kw)
 
     UNet.forward = counted
@@ -2280,6 +2294,9 @@ def unet_rows():
         yield rows
     finally:
         UNet.forward = forward
+        for sp in tracing.spans("unet.forward", after=mark):
+            if sp.attrs.get("graphed"):
+                rows[(sp.attrs["rows"], False)] += 1
 
 
 def rank_child(argv: list) -> int:
@@ -2860,6 +2877,84 @@ def run_formats(state_dict: dict, device, k1_sites: int,
         tmp.cleanup()
 
 
+# ---------------------------------------------------------------------
+# phase 27: the served UNet forward replayed as a CUDA graph
+
+GRAPH_REQUESTS = 2 * BATCH        # two full batches
+
+
+def run_graphed_serving(state_dict: dict, device, k1_sites: int,
+                        k3_sites: int) -> dict:
+    """Phase 27: a ViewFusionService at the paper config on phase 5's
+    weights.  Its warm-up (DDIM 50 at the served 8 x 6 rows) captures the
+    UNet forward exactly once (the first forward eager, the second the
+    capture); then two full batches, every forward of which is a replay,
+    with exactly 69 K1 and 8 K3 launches per forward.  Returns the
+    phase's launches, which the kernels line keeps apart from the other
+    paths'."""
+    cfg = Config.from_dict(PAPER_CONFIG)
+    service = ViewFusionService.from_state_dict(
+        cfg, state_dict, batch_size=BATCH, max_views=MAX_VIEWS,
+        default_steps=DDIM_STEPS, device=device)
+    before = tracing.counters()
+    t0 = time.perf_counter()
+    service.warmup([DDIM_STEPS])
+    warm_s = time.perf_counter() - t0
+    warm = tracing.counters()
+    captures = (warm.get("unet.graph_captures", 0)
+                - before.get("unet.graph_captures", 0))
+    warm_replays = (warm.get("unet.graph_replays", 0)
+                    - before.get("unet.graph_replays", 0))
+    if (captures, warm_replays) != (1, DDIM_STEPS - 2):
+        raise AssertionError(f"warm-up: {captures} captures and "
+                             f"{warm_replays} replays, not 1 and "
+                             f"{DDIM_STEPS - 2}")
+    rng = np.random.default_rng(SEED + 27)
+    hw = service.image_size
+    conds = [rng.uniform(0, 1, (1 + i % MAX_VIEWS, hw, hw, 3)).astype(
+        np.float32) for i in range(GRAPH_REQUESTS)]
+    angles = [0.3 * i for i in range(GRAPH_REQUESTS)]
+    service.batch_log.clear()
+    service.max_wait_ms = 60_000.0  # each batch cut when it is full
+    group_norm_act.launches = spatial_self_attention.launches = 0
+    mark = tracing.mark()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(GRAPH_REQUESTS) as pool:
+        got = list(pool.map(service.submit, conds, angles))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = tracing.counters()
+    forwards = tracing.spans("unet.forward", after=mark)
+    launches = {"k1": group_norm_act.launches,
+                "k3": spatial_self_attention.launches}
+    n = len(forwards)
+    if not all(img.shape == (hw, hw, 3) and np.isfinite(img).all()
+               for img in got):
+        raise AssertionError("bad served image")
+    if (n != 2 * DDIM_STEPS
+            or not all(sp.attrs.get("graphed") for sp in forwards)
+            or after["unet.graph_captures"] != warm["unet.graph_captures"]
+            or after["unet.graph_replays"] - warm["unet.graph_replays"] != n
+            or launches != {"k1": k1_sites * n, "k3": k3_sites * n}):
+        raise AssertionError(
+            f"graphed serving: {n} forwards, graphed "
+            f"{[sp.attrs.get('graphed') for sp in forwards]}, counters "
+            f"{after}, launches {launches} != sites ({k1_sites}, "
+            f"{k3_sites}) x {n}")
+    batches = [sec for _, _, _, sec in service.batch_log]
+    say(f"phase 27 on {card_line()}: warm-up DDIM {DDIM_STEPS} in "
+        f"{warm_s:.2f} s with 1 capture and {warm_replays} replays; "
+        f"{GRAPH_REQUESTS} requests in {len(batches)} full batches in "
+        f"{wall:.2f} s, every one of the {n} forwards a replay; batches "
+        + " ".join(f"{sec * 1e3:.0f}" for sec in batches)
+        + f" ms; spans {span_summary(mark)}")
+    say(f"launches on the graphed serving path (counted apart): K1 "
+        f"{launches['k1']}, K3 {launches['k3']} over {n} replayed forwards")
+    del service
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
@@ -3011,6 +3106,10 @@ def main() -> int:
 
     # 26. the input formats on the served path
     formats = run_formats(state_dict, device, k1_calls, k3_calls)
+    torch.cuda.empty_cache()
+
+    # 27. the served forward replayed as a CUDA graph (counted apart)
+    graphed = run_graphed_serving(state_dict, device, k1_calls, k3_calls)
 
     kernels = []
     for name, route_src, replaces, tot, key, per in (
@@ -3074,7 +3173,8 @@ def main() -> int:
         "per": f"one training step's {k4_calls} conv weight gradients at "
                f"{TRAIN_ROWS} rows"})
     say(card_line())
-    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"kernels": kernels,
+                    "graphed_serving_launches": graphed}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

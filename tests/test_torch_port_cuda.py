@@ -589,3 +589,168 @@ def test_native_reader_agrees_with_the_codec(tmp_path):
     assert native.keys() == codec.keys() and len(codec) == 6
     for key, views in codec.items():
         assert np.array_equal(native[key], views), key
+
+
+# ---------------------------------------------------------------------
+# the denoiser's forward replayed as a CUDA graph (models/graphed.py)
+
+def _paper_model(device, net="unet"):
+    """ViewFusion at configs/small-tpu-4.yaml's (or dit-small-tpu-4's)
+    widths on the card, weights seeded and cast as the server casts them
+    (a DiT's zero-init layers perturbed: a fresh one is the zero map)."""
+    from pathlib import Path
+
+    from viewfusion_tpu_torch.config import load_config
+    from viewfusion_tpu_torch.models.unet import cast_matmul_weights_
+    from viewfusion_tpu_torch.models.view_fusion import ViewFusion
+
+    name = "small-tpu-4.yaml" if net == "unet" else "dit-small-tpu-4.yaml"
+    cfg = load_config(str(Path(__file__).resolve().parents[1] / "configs"
+                          / name))
+    torch.manual_seed(0)
+    model = ViewFusion.from_config(cfg)
+    if net == "dit":
+        gen = torch.Generator().manual_seed(1)
+        model.unet.load_state_dict({
+            k: v + 0.02 * torch.randn(v.shape, generator=gen)
+            for k, v in model.unet.state_dict().items()})
+    model.unet.to(device).eval()
+    cast_matmul_weights_(model.unet, model.unet.dtype)
+    return model, cfg
+
+
+def _views(device, b, n, hw, seed=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.rand((b, n, hw, hw, 3), generator=g, device=device) * 2
+            - 1).to(torch.bfloat16), \
+        torch.randn((b, hw, hw, 3), generator=g, device=device), \
+        torch.rand((b,), generator=g, device=device), \
+        torch.rand((b,), generator=g, device=device) * 6.28
+
+
+def _eager(model, y_cond, y_t, level, angle, packed_idx=None):
+    """The same call with the graph runner out of the way."""
+    runner = model.graphs
+    model.graphs = lambda m, x, a, lvl, **kw: (m(x, a, lvl), False)
+    try:
+        return model._denoise_views(y_cond, y_t, level, angle, packed_idx)
+    finally:
+        model.graphs = runner
+
+
+def _calls(model, args, n, packed_idx=None):
+    """``n`` calls through the runner: (outputs, graphed flags)."""
+    from viewfusion_tpu_torch import tracing
+
+    mark = tracing.mark()
+    outs = [model._denoise_views(*args, packed_idx) for _ in range(n)]
+    flags = [s.attrs["graphed"]
+             for s in tracing.spans("unet.forward", after=mark)]
+    return outs, flags
+
+
+@pytest.mark.parametrize("case", ["unet_48_dense", "unet_28_packed",
+                                  "dit_48_dense"])
+def test_graphed_forward_equals_the_eager_one(device, case):
+    """First call eager, second the side-stream warm-up and capture,
+    third and fourth replays: each equal to the eager forward bit for
+    bit, at the served 8 x 6 rows and the ancestral chain's 28 packed
+    rows; one capture, two replays."""
+    from viewfusion_tpu_torch import tracing
+    from viewfusion_tpu_torch.training.trainer import packed_indices
+
+    model, cfg = _paper_model(device, case.split("_")[0])
+    hw = cfg.denoiser.image_size
+    args = _views(device, 8, 6, hw)
+    packed_idx = None
+    if case == "unet_28_packed":
+        counts = np.array([1, 2, 3, 4, 5, 6, 4, 3])
+        packed_idx = tuple(torch.from_numpy(a).long().to(device)
+                           for a in packed_indices(counts))
+    before = tracing.counters()
+    with torch.inference_mode():
+        want = _eager(model, *args, packed_idx)
+        outs, flags = _calls(model, args, 4, packed_idx)
+    after = tracing.counters()
+    assert flags == [False, False, True, True]
+    for out in outs:
+        assert torch.equal(out, want)
+    assert outs[2].data_ptr() != outs[3].data_ptr()  # clones, not the buffer
+    for name, rise in (("unet.graph_captures", 1), ("unet.graph_replays", 2)):
+        assert after[name] - before.get(name, 0) == rise
+
+
+def test_a_replay_reads_weights_loaded_in_place(device):
+    from viewfusion_tpu_torch import tracing
+
+    model, cfg = _paper_model(device)
+    args = _views(device, 8, 6, cfg.denoiser.image_size)
+    with torch.inference_mode():
+        first, _ = _calls(model, args, 3)
+    captures = tracing.counters()["unet.graph_captures"]
+    gen = torch.Generator().manual_seed(7)
+    model.unet.load_state_dict({
+        k: (v.float().cpu() + 0.01 * torch.randn(v.shape, generator=gen))
+        for k, v in model.unet.state_dict().items()})
+    with torch.inference_mode():
+        want = _eager(model, *args)
+        outs, flags = _calls(model, args, 1)
+    assert flags == [True]
+    assert tracing.counters()["unet.graph_captures"] == captures
+    assert torch.equal(outs[0], want) and not torch.equal(want, first[0])
+
+
+def test_a_parameter_given_new_storage_is_captured_anew(device):
+    from viewfusion_tpu_torch import tracing
+
+    model, cfg = _paper_model(device)
+    args = _views(device, 8, 6, cfg.denoiser.image_size)
+    with torch.inference_mode():
+        _calls(model, args, 3)
+    captures = tracing.counters()["unet.graph_captures"]
+    conv = model.unet.downs[0]
+    conv.weight = torch.nn.Parameter(conv.weight.detach() * 1.5)
+    with torch.inference_mode():
+        want = _eager(model, *args)
+        outs, flags = _calls(model, args, 3)
+    assert flags == [False, False, True]
+    assert tracing.counters()["unet.graph_captures"] == captures + 1
+    for out in outs:
+        assert torch.equal(out, want)
+
+
+def test_graphed_ddim_chain_equals_the_eager_chain(device):
+    """generate_ddim, 50 steps at 8 x 6 rows from a seeded generator:
+    the graphed chain (48 replays) equals the eager one bit for bit."""
+    from viewfusion_tpu_torch import tracing
+
+    model, cfg = _paper_model(device)
+    y_cond, _, _, angle = _views(device, 8, 6, cfg.denoiser.image_size)
+    counts = torch.tensor([1, 2, 3, 4, 5, 6, 6, 6], device=device)
+
+    def chain():
+        g = torch.Generator(device=device).manual_seed(11)
+        return model.generate_ddim(y_cond.float(), counts, angle,
+                                   num_steps=50, generator=g)
+
+    runner = model.graphs
+    model.graphs = lambda m, x, a, lvl, **kw: (m(x, a, lvl), False)
+    want = chain()
+    model.graphs = runner
+    before = tracing.counters().get("unet.graph_replays", 0)
+    got = chain()
+    assert tracing.counters()["unet.graph_replays"] - before == 48
+    assert torch.equal(got, want)
+
+
+def test_replays_count_each_kernel_launch(device):
+    """K1 and K3's counters rise by the paper UNet's 69 and 8 launches for
+    every forward, replayed or not, and not for the capture."""
+    model, cfg = _paper_model(device)
+    args = _views(device, 8, 6, cfg.denoiser.image_size)
+    group_norm_act.launches = spatial_self_attention.launches = 0
+    with torch.inference_mode():
+        _, flags = _calls(model, args, 5)
+    assert flags == [False, False, True, True, True]
+    assert (group_norm_act.launches, spatial_self_attention.launches) == (
+        69 * 5, 8 * 5)

@@ -47,6 +47,7 @@ import torch
 from viewfusion_tpu_torch import tracing
 from viewfusion_tpu_torch.config import Config
 from viewfusion_tpu_torch.models.dit import DiT
+from viewfusion_tpu_torch.models.graphed import GraphedForward
 from viewfusion_tpu_torch.models.unet import UNet
 from viewfusion_tpu_torch.ops.schedules import DiffusionSchedule
 
@@ -153,8 +154,9 @@ class ViewFusion:
     """The denoiser, the active schedule and the composition flags.
 
     ``unet`` holds the denoiser, a :class:`UNet` or a :class:`DiT` (same
-    call contract).  Each denoiser call is a ``unet.forward`` span and
-    each step of a sampler a ``sampler.step`` span (``tracing.py``)."""
+    call contract), which ``graphs`` calls (a CUDA graph replayed where
+    the call allows it).  Each denoiser call is a ``unet.forward`` span
+    and each step of a sampler a ``sampler.step`` span (``tracing.py``)."""
 
     def __init__(self, unet: Union[UNet, DiT], schedule: DiffusionSchedule,
                  weighting_train: bool = True,
@@ -164,6 +166,7 @@ class ViewFusion:
         self.weighting_train = weighting_train
         self.weighting_inference = weighting_inference
         self._gammas = {}  # the gamma table on each device it was used on
+        self.graphs = GraphedForward()  # the denoiser's calls
 
     @classmethod
     def from_config(cls, cfg: Config,
@@ -194,27 +197,34 @@ class ViewFusion:
         scattered into zeros at ``sample_idx * N + view_idx``; untouched
         slots stay 0 and are masked by :meth:`compose`.  ``denoiser``
         replaces ``self.unet`` for the call (the train step's DDP and
-        view-split wrappers); ``dropout`` goes to the UNet."""
+        view-split wrappers); ``dropout`` goes to the UNet.  The call
+        goes through :attr:`graphs`, which replays it as a CUDA graph
+        where it can (``models/graphed.py``)."""
         b, n, h, w, _ = y_cond.shape
         unet = self.unet if denoiser is None else denoiser
-        kw = {} if dropout is None else {"dropout": dropout}
-        with tracing.span("unet.forward"):
+        with tracing.span("unet.forward") as span:
             if packed_idx is not None:
                 sample_idx, view_idx = packed_idx
                 x = torch.cat([y_cond[sample_idx, view_idx],
                                y_target[sample_idx].to(y_cond.dtype)], dim=-1)
-                out = unet(x, angle.reshape(-1)[sample_idx],
-                           noise_level[sample_idx], **kw)
-                dense = out.new_zeros((b * n,) + out.shape[1:])
-                dense = dense.index_copy(0, sample_idx * n + view_idx, out)
-                return dense.reshape(b, n, h, w, -1)
-            y_rep = y_target[:, None].expand(b, n, h, w, y_target.shape[-1])
-            x = torch.cat([y_cond, y_rep.to(y_cond.dtype)], dim=-1)
-            level_rep = noise_level[:, None].expand(b, n).reshape(-1)
-            angle_rep = angle.reshape(-1)[:, None].expand(b, n).reshape(-1)
-            out = unet(x.reshape(b * n, h, w, -1), angle_rep, level_rep,
-                       **kw)
-            return out.reshape(b, n, h, w, -1)
+                args = (x, angle.reshape(-1)[sample_idx],
+                        noise_level[sample_idx])
+            else:
+                y_rep = y_target[:, None].expand(b, n, h, w,
+                                                 y_target.shape[-1])
+                x = torch.cat([y_cond, y_rep.to(y_cond.dtype)], dim=-1)
+                level_rep = noise_level[:, None].expand(b, n).reshape(-1)
+                angle_rep = angle.reshape(-1)[:, None].expand(b, n).reshape(-1)
+                args = (x.reshape(b * n, h, w, -1), angle_rep, level_rep)
+            out, graphed = self.graphs(unet, *args, dropout=dropout,
+                                       override=denoiser is not None)
+            if span is not None:
+                span.attrs.update(graphed=graphed, rows=args[0].shape[0])
+            if packed_idx is None:
+                return out.reshape(b, n, h, w, -1)
+            dense = out.new_zeros((b * n,) + out.shape[1:])
+            dense = dense.index_copy(0, sample_idx * n + view_idx, out)
+            return dense.reshape(b, n, h, w, -1)
 
     @staticmethod
     def compose(unet_out, mask, weighting: bool):

@@ -41,7 +41,10 @@ The names the port records (``PERF.md`` lists the readers of each):
     ``serve.h2d``, the sampler's steps and ``serve.copy_back``; counters
     ``serve.refused``, ``serve.timed_out``, ``serve.abandoned``;
   * the samplers: ``sampler.step``, each with its ``unet.forward`` (one
-    per denoiser call, in training too);
+    per denoiser call, in training too; attributes ``graphed``, whether
+    a CUDA graph was replayed, and ``rows``, the denoiser's batch);
+    counters ``unet.graph_captures``, ``unet.graph_replays`` and
+    ``unet.graph_bypassed`` (``models/graphed.py``);
   * training: ``train.step`` (key: updates made before it) with
     ``train.h2d``, ``train.forward``, ``train.backward``,
     ``train.optimizer``, ``train.ema`` and, on more than one rank,
@@ -64,7 +67,8 @@ from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["RING", "Span", "Tracer", "enable", "span", "begin", "end",
-           "count", "watch", "counters", "spans", "mark"]
+           "count", "watch", "watched", "add_watched", "counters", "spans",
+           "mark"]
 
 RING = 1 << 16
 """Finished spans kept: a benchmark run records about 7 a train step or
@@ -192,12 +196,24 @@ class Tracer:
         launch count)."""
         self._watched[name] = (obj, attr)
 
+    def watched(self) -> Dict[str, int]:
+        """The watched attributes as they are now."""
+        return {n: getattr(o, a) for n, (o, a) in self._watched.items()}
+
+    def add_watched(self, rises: Dict[str, int], times: int = 1) -> None:
+        """Add ``times`` x ``rises[name]`` to each watched attribute named
+        there: the launches a replayed CUDA graph ran, which no wrapper
+        counted (``models/graphed.py``)."""
+        for name, n in rises.items():
+            obj, attr = self._watched[name]
+            setattr(obj, attr, getattr(obj, attr) + times * n)
+
     def counters(self) -> Dict[str, int]:
         """One snapshot of every counter, the watched attributes
         included."""
         with self._lock:
             snap = dict(self._counts)
-        snap.update({n: getattr(o, a) for n, (o, a) in self._watched.items()})
+        snap.update(self.watched())
         return snap
 
     def spans(self, name: Optional[str] = None, after: int = 0
@@ -221,6 +237,8 @@ begin = _TRACER.begin
 end = _TRACER.end
 count = _TRACER.count
 watch = _TRACER.watch
+watched = _TRACER.watched
+add_watched = _TRACER.add_watched
 counters = _TRACER.counters
 spans = _TRACER.spans
 mark = _TRACER.mark

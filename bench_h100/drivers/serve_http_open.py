@@ -42,7 +42,6 @@ import numpy as np
 from bench_h100 import harness
 from bench_h100 import trace as tracing
 from bench_h100.reference import diffusion, precision
-from bench_h100.reference import unet as ref_unet
 from bench_h100.traffic import arrivals, png, views
 
 LOADGEN = Path(__file__).resolve().parent.parent / "traffic" / "loadgen.py"
@@ -109,10 +108,11 @@ def _served_image(rec, size):
     return np.frombuffer(data, np.uint8).reshape(size, size, 3)
 
 
-def reference_images(params, widths, sched, picks, batches, steps, size,
-                     batch_size, device, prec=precision.FLOAT32):
+def reference_images(forward, params, widths, sched, picks, batches, steps,
+                     size, batch_size, device, prec=precision.FLOAT32):
     """The reference's uint8 image for each picked request ((count, angle,
-    views, batch index, slot)), all in one reference batch."""
+    views, batch index, slot)), all in one reference batch, with the
+    family's reference ``forward``."""
     import torch
 
     draws = {}
@@ -137,7 +137,7 @@ def reference_images(params, widths, sched, picks, batches, steps, size,
                             for _, _, _, k, slot in picks])
 
     def denoiser(x, a, lv):
-        return ref_unet.forward(params, widths, x, a, lv, prec)
+        return forward(params, widths, x, a, lv, prec)
 
     with torch.no_grad():
         y = diffusion.ddim_eta1(denoiser, sched, cond, counts, angle, steps,
@@ -183,8 +183,10 @@ class Served:
         self.steps, self.sampler = int(tr["steps"]), tr["sampler"]
         if self.sampler != "ddim":
             raise ValueError("the reference follows the ddim sampler only")
-        self.params = harness.make_params(ref_unet.param_specs(widths),
-                                          harness.sub_seed(seed, 2), device)
+        self.reference = cell.reference()
+        self.params = harness.make_params(
+            self.reference.param_specs(widths), harness.sub_seed(seed, 2),
+            device)
         self.service = ViewFusionService.from_state_dict(
             config, self.params, batch_size=int(tr["batch_size"]),
             max_wait_ms=float(tr["max_wait_ms"]), default_steps=self.steps,
@@ -303,9 +305,9 @@ def run(cell, seed: int, seconds: float, trace: int, device: str,
     if good:
         precision.no_tf32()
         sched = diffusion.Schedule(**cell.config["schedule"])
-        ref = reference_images(s.params, widths, sched, [p for _, p in good],
-                               batches, steps, size, int(tr["batch_size"]),
-                               device)
+        ref = reference_images(s.reference.forward, s.params, widths, sched,
+                               [p for _, p in good], batches, steps, size,
+                               int(tr["batch_size"]), device)
         for (i, _), ref_img in zip(good, ref):
             served = _served_image(records[i], size).astype(np.int32)
             diff = np.abs(served - ref_img.astype(np.int32))
@@ -326,7 +328,8 @@ def run(cell, seed: int, seconds: float, trace: int, device: str,
     real_views = ([int(b[2][:n].sum()) for b, (_, _, n, _) in
                    zip(batches, batch_log)]
                   if len(batches) == len(batch_log) else None)
-    record = {"kind": "serve", "widths": widths, "denoiser": "unet",
+    record = {"kind": "serve", "widths": widths,
+              "denoiser": cell.config["denoiser"],
               "steps": steps, "batch_size": int(tr["batch_size"]),
               "n_max": service.n_max, "batch_log": batch_log,
               "real_views": real_views, "dtype": cell.config["compute_dtype"]}
@@ -367,19 +370,17 @@ def profile_stretch(start, seconds, device, service, recorder):
 
 def _traced(prof, record, outcome, spans) -> None:
     """Fill the record and the outcome from the profiled stretch: device
-    ops, busy time, the device ops of each batch run wholly inside it
-    (with the batch's real views), and the batches before it for the
-    wall time."""
+    ops, busy time, the device ops of each batch run wholly inside it,
+    and the batches before it for the wall time."""
     record["device_ops"] = prof.device
     record["busy_s"] = tracing.busy_s(prof.device)
-    views = record["real_views"]
     inside = [(k, a, b) for k, a, b in spans
               if a >= prof.host_t0 and b <= prof.host_t1]
     ops = ([] if prof.offset_s is None else tracing.ops_until_copy_back(
         prof.device, [(prof.to_trace(a), prof.to_trace(b))
                       for _, a, b in inside]))
     record["profiled_batches"] = [
-        {"index": k, "real_views": views[k] if views else None, "ops": o}
+        {"index": k, "ops": o}
         for (k, _, _), o in zip(inside, ops) if o is not None]
     record["forwards_profiled"] = (len(record["profiled_batches"])
                                    * record["steps"])

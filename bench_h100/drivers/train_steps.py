@@ -38,11 +38,6 @@ from bench_h100.reference import adam, diffusion, precision
 from bench_h100.traffic import counts as count_rule
 
 
-def ref_module(denoiser: str):
-    from bench_h100.reference import dit, unet
-    return {"unet": unet, "dit": dit}[denoiser]
-
-
 def make_batches(seed: int, n: int, b: int, max_views: int, size: int):
     rng = np.random.default_rng([seed % (2 ** 64), 5])
     out = []
@@ -84,7 +79,7 @@ def reference_steps(cell, params, batches, gen_seed, steps, device,
 
     precision.no_tf32()
     cfgj = cell.config
-    mod = ref_module(cfgj["denoiser"])
+    mod = cell.reference()
     widths = cfgj["widths"]
     sched = diffusion.Schedule(**cfgj["schedule"])
     opt_cfg = cfgj["optimizer"]
@@ -180,9 +175,9 @@ class Program:
         harness.check_widths(config, widths, cell.yaml_path)
         if not config.train.packed_views:
             raise ValueError("the training driver feeds packed batches")
-        mod = ref_module(cfgj["denoiser"])
-        self.params = harness.make_params(mod.param_specs(widths),
-                                          harness.sub_seed(seed, 2), device)
+        self.params = harness.make_params(
+            cell.reference().param_specs(widths), harness.sub_seed(seed, 2),
+            device)
         self.gen_seed = harness.sub_seed(seed, 4)
         self.trainer = Trainer(config, device=device,
                                state_dict=self.params, seed=self.gen_seed)

@@ -3,7 +3,10 @@ weights, the device's description and the result line.
 
 A cell is ``workloads/<name>.json``; it names its configuration
 (``configs/<config>.json``, with the YAML the program reads beside it)
-and its driver (``drivers/<driver>.py``).  A per-layer metric is
+and its driver (``drivers/<driver>.py``).  The configuration's
+``denoiser`` names its model family: the plain reference
+``reference/<denoiser>.py`` and the work counts ``work/<denoiser>.py``
+(README.md gives what each must define).  A per-layer metric is
 ``metrics/<metric>.py``.  ``BENCHMARK.json`` at the checkout's root says
 which metrics each cell reports."""
 
@@ -35,6 +38,14 @@ def _module(path: Path, name: str):
     return mod
 
 
+def family_module(part: str, denoiser: str, root: Path = HERE):
+    """A model family's ``<part>/<denoiser>.py`` under ``root``, where
+    ``part`` is ``reference`` or ``work``; FileNotFoundError, naming the
+    path, where the family has no such file."""
+    return _module(root / part / f"{denoiser}.py",
+                   f"bench_{part}_{denoiser}")
+
+
 @dataclass
 class Cell:
     """A cell's files, found by name under ``root`` (this directory)."""
@@ -61,6 +72,15 @@ class Cell:
     def metric(self, name: str):
         return _module(self.root / "metrics" / f"{name}.py",
                        "bench_metric_" + name.replace(".", "_"))
+
+    def reference(self):
+        """The configuration's plain reference: ``param_specs(widths)``
+        and ``forward(params, widths, x, angle, level, prec)``."""
+        return family_module("reference", self.config["denoiser"], self.root)
+
+    def work(self):
+        """The configuration's work counts: ``flops_per_row(widths)``."""
+        return family_module("work", self.config["denoiser"], self.root)
 
 
 def manifest_metrics(manifest: dict, cell: str):

@@ -5,7 +5,9 @@ record has nothing for it to read."""
 from __future__ import annotations
 
 import statistics
+from pathlib import Path
 
+from bench_h100 import harness
 from bench_h100.trace import kernel_s
 from bench_h100.work import h100
 
@@ -23,6 +25,14 @@ def roofline_pct(record, names, bound_s) -> float | None:
     if not count or seconds <= 0:
         return None
     return 100.0 * bound_s / seconds
+
+
+def work(record, reader: str):
+    """The work module of the record's model family,
+    ``work/<denoiser>.py`` in the benchmark folder that holds the reader
+    (``reader`` is the reader's ``__file__``)."""
+    return harness.family_module("work", record["denoiser"],
+                                 Path(reader).resolve().parents[1])
 
 
 def median(values):

@@ -1,22 +1,20 @@
 """What the serving readers share: the batches run wholly inside the
-profiled stretch, each with its device ops and its real views (the
-views of the requests in it, never the padded slots)."""
+profiled stretch, each with its device ops."""
 
 from __future__ import annotations
 
 from bench_h100.trace import busy_s, kernel_s
-from bench_h100.work import h100
 
 
 def batches(record):
-    """The profiled batches of a traced UNet serving run, or []."""
-    if record.get("kind") != "serve" or record.get("denoiser") != "unet":
+    """The profiled batches of a traced serving run, or []."""
+    if record.get("kind") != "serve":
         return []
     return record.get("profiled_batches") or []
 
 
 def busy_per_forward_s(record):
-    """Device-busy seconds per UNet forward over the profiled batches
+    """Device-busy seconds per denoiser forward over the profiled batches
     (the union of each batch's device intervals), or None."""
     bs = batches(record)
     if not bs:
@@ -25,23 +23,17 @@ def busy_per_forward_s(record):
 
 
 def roofline_pct(record, names, bound_per_forward_s):
-    """100 x the bound time of the profiled batches' forwards at their
-    real rows (``bound_per_forward_s(rows)``) over the traced time of
-    the kernels ``names`` in them; None where there is nothing to read
-    (no batch, no real views, or no such kernel)."""
+    """100 x the bound time of the profiled batches' forwards at the rows
+    the kernels ran (``bound_per_forward_s(rows)``; every forward runs
+    all ``batch_size`` x ``n_max`` view slots, padded or not) over the
+    traced time of the kernels ``names`` in them; None where there is
+    nothing to read (no batch, or no such kernel)."""
     bs = batches(record)
-    if not bs or any(b["real_views"] is None for b in bs):
+    if not bs:
         return None
     seconds = sum(kernel_s(b["ops"], names)[0] for b in bs)
     if seconds <= 0:
         return None
-    bound = sum(bound_per_forward_s(b["real_views"]) for b in bs)
-    return 100.0 * bound * record["steps"] / seconds
-
-
-def site_bound_s(sites, bytes_of, flops_of, dtype):
-    """``rows -> bound seconds of one forward`` over ``sites`` (a
-    Counter of shape -> count)."""
-    return lambda rows: sum(
-        n * h100.bound_s(bytes_of(rows, *shape), flops_of(rows, *shape),
-                         dtype) for shape, n in sites.items())
+    rows = record["batch_size"] * record["n_max"]
+    return (100.0 * bound_per_forward_s(rows) * len(bs) * record["steps"]
+            / seconds)

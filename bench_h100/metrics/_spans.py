@@ -57,9 +57,9 @@ def descendants(spans, root) -> list:
 
 def unprofiled_batches(record):
     """How many batches ended before the profiler started, in a traced
-    UNet serving run (ids 1..n: those the profiler did not slow), else
+    serving run (ids 1..n: those the profiler did not slow), else
     None."""
-    if record.get("kind") != "serve" or record.get("denoiser") != "unet":
+    if record.get("kind") != "serve":
         return None
     return record.get("unprofiled_batches") or None
 

@@ -1,17 +1,20 @@
 """K1 (``gn_fwd``) against its roofline in the batches served inside the
 profiled stretch: the bytes every GroupNorm site of a forward needs at
-the batch's real views (the padded slots need none; ``work/unet.py``),
-over 3.35 TB/s, against K1's traced time in those batches."""
+the rows the kernel ran (batch size x view slots, the padded slots
+included; the sites from the record's family, ``work/<denoiser>.py``,
+the bytes from ``work/kernels.py``), over 3.35 TB/s, against K1's traced
+time in those batches.  None for a family without GroupNorm sites."""
 
-from bench_h100.metrics import _serve
-from bench_h100.work import unet as work
+from bench_h100.metrics import _common, _serve
+from bench_h100.work import kernels
 
 
 def read(record):
     if not _serve.batches(record):
         return None
-    sites = work.groupnorm_sites(record["widths"])
-    bound = _serve.site_bound_s(
-        sites, lambda rows, L, C, _act: work.groupnorm_fwd_bytes(rows, L, C),
-        lambda rows, *_: 0.0, record["dtype"])
-    return _serve.roofline_pct(record, ("gn_fwd",), bound)
+    sites = getattr(_common.work(record, __file__), "groupnorm_sites", None)
+    if sites is None:
+        return None
+    return _serve.roofline_pct(
+        record, ("gn_fwd",), lambda rows: kernels.groupnorm_bound_s(
+            sites(record["widths"]), rows, record["dtype"]))

@@ -1,21 +1,21 @@
 """K2 (``gn_bwd``) against its roofline at the step's rows: the bytes
-every GroupNorm site's backward needs at this rank's packed rows
-(``work/unet.py``), over 3.35 TB/s, times the steps profiled, against
-K2's traced time in them."""
+every GroupNorm site's backward needs at this rank's packed rows (the
+sites from the record's family, ``work/<denoiser>.py``, the bytes from
+``work/kernels.py``), over 3.35 TB/s, times the steps profiled, against
+K2's traced time in them.  None for a family without GroupNorm sites."""
 
-from bench_h100.metrics._common import roofline_pct
-from bench_h100.work import h100
-from bench_h100.work import unet as work
+from bench_h100.metrics import _common
+from bench_h100.work import kernels
 
 
 def read(record):
-    if record.get("kind") != "train" or record.get("denoiser") != "unet":
+    if record.get("kind") != "train" or "rank_rows" not in record:
         return None
-    if "rank_rows" not in record:
+    sites = getattr(_common.work(record, __file__), "groupnorm_sites", None)
+    if sites is None:
         return None
-    sites = work.groupnorm_sites(record["widths"])
-    rows = record["rank_rows"]
-    bound = sum(n * h100.bound_s(work.groupnorm_bwd_bytes(rows, L, C), 0.0,
-                                 record["dtype"])
-                for (L, C, _), n in sites.items())
-    return roofline_pct(record, ("gn_bwd",), bound * record["profile_steps"])
+    bound = kernels.groupnorm_bound_s(sites(record["widths"]),
+                                      record["rank_rows"], record["dtype"],
+                                      backward=True)
+    return _common.roofline_pct(record, ("gn_bwd",),
+                                bound * record["profile_steps"])

@@ -114,6 +114,10 @@ def main(argv=None, root: Path = harness.HERE, device: str = "cuda",
     if "BENCH_H100_T0" in os.environ:
         t0 = float(os.environ["BENCH_H100_T0"])
     cell = harness.Cell(args.workload, root)
+    try:                        # the model family's files, before any weights
+        cell.reference(), cell.work()
+    except FileNotFoundError as e:
+        _fail(str(e))
     chips = int(cell.workload["chips"])
     manifest_path = root.parent / "BENCHMARK.json"
     manifest = harness.load_json(manifest_path) \

@@ -53,11 +53,13 @@ def _yaml(root: Path, denoiser: str, dtype: str) -> str:
 
 
 def add_tiny_cell(root: Path, name: str, base: str, dtype: str = "float32",
-                  **traffic) -> str:
+                  config: str = None, **traffic) -> str:
     """Write configs/<name>-cfg.{json,yaml} and workloads/<name>.json,
-    cut from the cell ``base``; returns the cell's name."""
+    cut from the cell ``base`` (and from the configuration ``config``
+    where given, else the cell's own); returns the cell's name."""
     wl = json.loads((root / "workloads" / f"{base}.json").read_text())
-    cfg = json.loads((root / "configs" / f"{wl['config']}.json").read_text())
+    cfg = json.loads((root / "configs" / f"{config or wl['config']}.json")
+                     .read_text())
     den = cfg["denoiser"]
     cfg.update(name=f"{name}-cfg", yaml=f"{name}-cfg.yaml",
                widths=TINY_UNET if den == "unet" else TINY_DIT,

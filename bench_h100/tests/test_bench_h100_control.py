@@ -52,8 +52,9 @@ def test_serving_control_fails(card):
     precision.no_tf32()
     sched = diffusion.Schedule(**cell.config["schedule"])
     ref, ctl = (drv.reference_images(
-        s.params, s.widths, sched, loc, s.recorder.batches, s.steps, s.size,
-        int(tr["batch_size"]), card, precision.Precision(p))
+        s.reference.forward, s.params, s.widths, sched, loc,
+        s.recorder.batches, s.steps, s.size, int(tr["batch_size"]), card,
+        precision.Precision(p))
         for p in ("float32", "fp8"))
     d = np.abs(ctl.astype(np.int32) - ref.astype(np.int32))
     lim = cell.workload["limits"]
@@ -68,7 +69,7 @@ def test_training_control_fails(card, name):
     drv = cell.driver()
     tr = cell.workload["traffic"]
     cfg = cell.config
-    mod = drv.ref_module(cfg["denoiser"])
+    mod = cell.reference()
     params = harness.make_params(mod.param_specs(cfg["widths"]),
                                  harness.sub_seed(515151, 2), card)
     batches = drv.make_batches(515151, int(tr["check_steps"]),

@@ -63,7 +63,7 @@ def test_share_of_graphed_forwards(monkeypatch, flags, want):
 
 @pytest.mark.parametrize("record", [
     {"kind": "serve", "denoiser": "unet", "unprofiled_batches": 0},
-    {"kind": "serve", "denoiser": "dit", "unprofiled_batches": 2},
+    {"kind": "serve", "denoiser": "dit"},
     {"kind": "train"}, {}])
 def test_none_without_batches(monkeypatch, record):
     monkeypatch.setattr(_spans, "program_spans",

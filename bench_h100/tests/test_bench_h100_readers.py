@@ -1,8 +1,9 @@
 """The serving readers count the work of the batches run wholly inside
-the profiled stretch at their real views: a batch's device ops run from
-its host range's start to the copy back that follows it, forwards are
-batches x steps, and the K1 roofline's bytes follow the real rows, not
-the padded slots or the number of K1 launches."""
+the profiled stretch: a batch's device ops run from its host range's
+start to the copy back that follows it, forwards are batches x steps,
+and the K1 roofline's bytes follow the rows the kernel ran (batch size x
+view slots, padded or not), not the real views or the number of K1
+launches."""
 
 import importlib.util
 from pathlib import Path
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 
 from bench_h100 import trace
-from bench_h100.work import h100
+from bench_h100.work import h100, kernels
 from bench_h100.work import unet as work
 
 METRICS = Path(__file__).resolve().parent.parent / "metrics"
@@ -48,7 +49,8 @@ def _record(real_views, k1_s_per_batch, steps=2, launches=3):
         ops.append(("Memcpy DtoH", t + 5.0, t + 6.0))
         batches.append({"index": k, "real_views": v, "ops": ops})
     return sites, {"kind": "serve", "denoiser": "unet", "widths": TINY,
-                   "steps": steps, "dtype": "bfloat16",
+                   "steps": steps, "dtype": "bfloat16", "batch_size": 4,
+                   "n_max": 3,
                    "profiled_batches": batches,
                    "unprofiled_batch_s": [40.0]}
 
@@ -56,16 +58,20 @@ def _record(real_views, k1_s_per_batch, steps=2, launches=3):
 def test_k1_roofline_follows_real_rows_not_launches():
     read = _reader("k1.roofline_pct.serve")
     sites, rec = _record([5, 11], [2e-3, 3e-3])
-    want = sum(n * h100.bound_s(work.groupnorm_fwd_bytes(rows, L, C), 0.0,
-                                "bfloat16")
-               for rows in (5, 11) for (L, C, _), n in sites.items())
+    # both batches ran 4 x 3 = 12 rows a forward, whatever their views
+    want = 2 * sum(n * h100.bound_s(kernels.groupnorm_fwd_bytes(12, L, C),
+                                    0.0, "bfloat16")
+                   for (L, C, _), n in sites.items())
     want = 100.0 * want * rec["steps"] / 5e-3
     assert read(rec) == pytest.approx(want, rel=1e-12)
-    # the same work in other launches reads the same
+    # the same work in other launches, or at other real views, reads the
+    # same
     _, rec7 = _record([5, 11], [2e-3, 3e-3], launches=7)
     assert read(rec7) == pytest.approx(want, rel=1e-12)
-    # a batch without its real views gives nothing to read
-    _, rec_none = _record([5, None], [2e-3, 3e-3])
+    _, rec_views = _record([1, None], [2e-3, 3e-3])
+    assert read(rec_views) == pytest.approx(want, rel=1e-12)
+    # no K1 traced in the batches gives nothing to read
+    _, rec_none = _record([5, 11], [0.0, 0.0])
     assert read(rec_none) is None
 
 

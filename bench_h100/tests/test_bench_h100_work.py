@@ -1,10 +1,11 @@
 """The work counts: the UNet's FLOPs at the paper configuration as
-``bench.py``'s walker gives them, and the GroupNorm, attention and DiT
-counts against counts worked by hand at a tiny size."""
+``bench.py``'s walker gives them, the GroupNorm, attention and DiT
+counts against counts worked by hand at a tiny size, and the kernels'
+per-site bytes and bounds (``work/kernels.py``)."""
 
 from collections import Counter
 
-from bench_h100.work import dit, h100, unet
+from bench_h100.work import dit, h100, kernels, unet
 
 PAPER = {"image_size": 64, "in_channel": 6, "out_channel": 6,
          "inner_channel": 64, "res_blocks": 3, "attn_res": [16],
@@ -38,7 +39,7 @@ def test_tiny_sites_by_hand():
                    (64, 16, "silu"): 1})                   # ups 8px
     gn += Counter({(64, 8, "silu"): 1})                    # final block
     assert unet.groupnorm_sites(TINY) == gn
-    assert unet.attention_sites(TINY) == Counter({(16, 16): 4})
+    assert unet.attention_sites(TINY) == Counter({(16, 16, 1): 4})
 
 
 def test_tiny_flops_by_hand():
@@ -67,11 +68,11 @@ def test_bytes_by_hand():
     # 2 rows of (L=16, C=8) in bf16: x read + y written, 2*16*8*2 bytes
     # a row, plus mean and rstd (32 groups x 4 bytes x 2) a row, plus
     # scale and bias (8 x 4 x 2)
-    assert unet.groupnorm_fwd_bytes(2, 16, 8) == 2 * (512 + 256) + 64
-    assert unet.groupnorm_bwd_bytes(2, 16, 8) == 2 * (768 + 256) + 128
+    assert kernels.groupnorm_fwd_bytes(2, 16, 8) == 2 * (512 + 256) + 64
+    assert kernels.groupnorm_bwd_bytes(2, 16, 8) == 2 * (768 + 256) + 128
     # q, k, v in bf16 and the f32 output: 16 x 8 x (6 + 4) a row
-    assert unet.attention_bytes(3, 16, 8) == 3 * 16 * 8 * 10
-    assert unet.attention_flops(3, 16, 8) == 3 * 4 * 16 * 16 * 8
+    assert kernels.attention_bytes(3, 16, 8) == 3 * 16 * 8 * 10
+    assert kernels.attention_flops(3, 16, 8) == 3 * 4 * 16 * 16 * 8
 
 
 def test_dit_by_hand():
@@ -90,3 +91,20 @@ def test_bound_takes_the_larger_term():
     assert h100.bound_s(3.35e12, 0, "bfloat16") == 1.0
     assert h100.bound_s(0, 989e12, "bfloat16") == 1.0
     assert h100.bound_s(0, 67e12, "float32") == 1.0
+
+
+def test_site_bounds_add_up_the_sites():
+    gn = Counter({(16, 8, "silu"): 2, (64, 4, "none"): 1})
+    assert kernels.groupnorm_bound_s(gn, 3, "bfloat16") == (
+        2 * kernels.groupnorm_fwd_bytes(3, 16, 8)
+        + kernels.groupnorm_fwd_bytes(3, 64, 4)) / 3.35e12
+    assert kernels.groupnorm_bound_s(gn, 3, "bfloat16", backward=True) == (
+        2 * kernels.groupnorm_bwd_bytes(3, 16, 8)
+        + kernels.groupnorm_bwd_bytes(3, 64, 4)) / 3.35e12
+    # a site of 2 heads runs one call on twice the rows; this one is
+    # bound by its bytes in bf16 and by its FLOPs in f32
+    at = Counter({(256, 8, 2): 3})
+    assert kernels.attention_bound_s(at, 5, "bfloat16") == \
+        3 * kernels.attention_bytes(10, 256, 8) / 3.35e12
+    assert kernels.attention_bound_s(at, 5, "float32") == \
+        3 * kernels.attention_flops(10, 256, 8) / 67e12

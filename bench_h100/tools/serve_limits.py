@@ -72,9 +72,9 @@ def main(argv=None) -> None:
         imgs = {}
         for name in ("float32", "fp8"):
             imgs[name] = drv.reference_images(
-                s.params, s.widths, sched, loc, s.recorder.batches, s.steps,
-                s.size, int(tr["batch_size"]), args.device,
-                precision.Precision(name))
+                s.reference.forward, s.params, s.widths, sched, loc,
+                s.recorder.batches, s.steps, s.size, int(tr["batch_size"]),
+                args.device, precision.Precision(name))
         served = np.stack([drv._served_image(recs[i], s.size)
                            for i in picked])
         row = {"seed": seed, "requests": len(recs), "compared": len(picked)}

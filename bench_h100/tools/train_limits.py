@@ -52,7 +52,7 @@ def main(argv=None) -> None:
         tr = cell.workload["traffic"]
         cfg = cell.config
         if args.reference_only:
-            mod = drv.ref_module(cfg["denoiser"])
+            mod = cell.reference()
             params = harness.make_params(mod.param_specs(cfg["widths"]),
                                          harness.sub_seed(seed, 2),
                                          args.device)

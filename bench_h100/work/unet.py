@@ -10,8 +10,8 @@ configuration (64 px, inner 64, mults 1/2/3/5, 3 res blocks, attention at
 
 ``groupnorm_sites`` and ``attention_sites`` list each site's shape and
 count per forward, walked over the same topology (rewritten from the
-hooks of ``chip_smoke.py:sites`` as arithmetic on the widths).  A site's
-bytes read every input once and write every output once.
+hooks of ``chip_smoke.py:sites`` as arithmetic on the widths), in the
+shapes ``work/kernels.py`` reads.
 """
 
 from __future__ import annotations
@@ -94,37 +94,11 @@ def groupnorm_sites(cfg) -> Counter:
 
 
 def attention_sites(cfg) -> Counter:
-    """Counter of (S, C) per forward: single-head attention over S = H*W
-    tokens of C channels."""
+    """Counter of (S, C, 1) per forward: single-head attention over
+    S = H*W tokens of C channels."""
     sites = Counter()
     for item in _walk(cfg):
         if item[0] == "block" and item[4]:
             _, h, _, cout, _ = item
-            sites[(h * h, cout)] += 1
+            sites[(h * h, cout, 1)] += 1
     return sites
-
-
-def groupnorm_fwd_bytes(rows: int, L: int, C: int, act_bytes: int = 2
-                        ) -> float:
-    """K1 at one site for ``rows`` samples: x read, y written (the
-    compute dtype), scale and bias read (f32), mean and rstd written
-    (f32, one per group of 32 groups)."""
-    return rows * (2 * L * C * act_bytes + 2 * 32 * 4) + 2 * C * 4
-
-
-def groupnorm_bwd_bytes(rows: int, L: int, C: int, act_bytes: int = 2
-                        ) -> float:
-    """K2 at one site: x and dy read, dx written (the compute dtype);
-    scale, bias, mean and rstd read; dscale and dbias written (f32)."""
-    return rows * (3 * L * C * act_bytes + 2 * 32 * 4) + 4 * C * 4
-
-
-def attention_bytes(rows: int, S: int, C: int, act_bytes: int = 2) -> float:
-    """K3 at one site: q, k, v read (the compute dtype), the f32 output
-    written."""
-    return rows * S * C * (3 * act_bytes + 4)
-
-
-def attention_flops(rows: int, S: int, C: int) -> float:
-    """q k^T and p v: 2 * S * S * C FLOPs each."""
-    return rows * 4.0 * S * S * C

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of ViewFusion on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py --adm    # phases 1, 2 and 28
 
 Phases (any failure raises and exits non-zero without the final line):
   1. device: the card's name and power limit (nvidia-smi); CUDA present;
@@ -162,6 +163,22 @@ Phases (any failure raises and exits non-zero without the final line):
      K3 launches per forward; these launches are counted apart from the
      other paths'.  (Every path above that samples without autograd
      replays its forwards the same way; their counts are unchanged.)
+ 28. the ADM denoiser (viewfusion_tpu_torch/configs/adm-imagenet-64.yaml:
+     192 channels, mults 1/2/3/4, attention at 32/16/8 px in heads of 64)
+     at one card's batch of 32 (R = 112 packed rows): its GroupNorm and
+     attention sites found by hooks on the model (95 and 22, 36 of the
+     GroupNorms AdaGN with a (B, C) affine); K1 and K2 at every distinct
+     GroupNorm shape, each with a (B, C) and a (C,) affine, against their
+     plain versions, timed with the plain versions and the byte bound,
+     with each plan (several stage only part of a block); the totals per
+     forward and per step, all sites and the AdaGN sites alone; K3 at the
+     three attention sites, timed; then the Trainer takes a warm-up step
+     and one step with the launch counters zeroed just before it, which
+     must read one K1 and one K2 launch per GroupNorm site (one with a
+     (B, C) affine per AdaGN) and one K3 launch per attention site; a
+     profiled step, its device time by kernel family and the device time
+     of the kernels under the closed-form attention backward's autograd
+     node (``_Attention.backward``).
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 
@@ -246,7 +263,8 @@ from viewfusion_tpu_torch.data.nmr import decode_views_u8
 from viewfusion_tpu_torch.data.synthetic import make_synthetic_shards
 from viewfusion_tpu_torch.data.tario import iter_tar_samples
 from viewfusion_tpu_torch.models import dit as dit_module
-from viewfusion_tpu_torch.models.dit import DiT
+from viewfusion_tpu_torch.models.adm import ADM, AdaGroupNorm
+from viewfusion_tpu_torch.models.dit import DiT, MHAttention
 from viewfusion_tpu_torch.ops.lpips import load_lpips
 from viewfusion_tpu_torch.ops.schedules import DiffusionSchedule
 from viewfusion_tpu_torch.parallel.mesh import (initialize_distributed,
@@ -642,6 +660,22 @@ def profile_forward(unet: UNet, device) -> None:
     report_profile(prof, f"one UNet forward at {ROWS} rows", wall_ms)
 
 
+def kernel_family(name: str) -> str:
+    """The family a device kernel's name puts it in (``report_profile``)."""
+    low = name.lower()
+    return ("K2 groupnorm bwd" if "gn_bwd" in low else
+            "K1 groupnorm" if "gn_" in low else
+            "K3 attention" if "attn_fwd" in low else
+            ("conv/gemm f32" if any(t in low for t in (
+                "sgemm", "f32f32", "ffma")) else "conv/gemm")
+            if any(w in low for w in (
+                "conv", "gemm", "xmma", "cutlass", "cudnn", "sm90",
+                "nvjet"))
+            else "optimizer" if any(w in low for w in (
+                "multi_tensor", "foreach", "adam"))
+            else "other")
+
+
 def report_profile(prof, what: str, wall_ms: float) -> float:
     """Device time by kernel family from a torch.profiler run, against
     the wall time of the work it traced; returns the device time (ms).
@@ -665,19 +699,7 @@ def report_profile(prof, what: str, wall_ms: float) -> float:
         return 0.0
     fam = Counter()
     for name, us in dev_us.items():
-        low = name.lower()
-        key = ("K2 groupnorm bwd" if "gn_bwd" in low else
-               "K1 groupnorm" if "gn_" in low else
-               "K3 attention" if "attn_fwd" in low else
-               ("conv/gemm f32" if any(t in low for t in (
-                   "sgemm", "f32f32", "ffma")) else "conv/gemm")
-               if any(w in low for w in (
-                   "conv", "gemm", "xmma", "cutlass", "cudnn", "sm90",
-                   "nvjet"))
-               else "optimizer" if any(w in low for w in (
-                   "multi_tensor", "foreach", "adam"))
-               else "other")
-        fam[key] += us / 1e3
+        fam[kernel_family(name)] += us / 1e3
     say(f"profile of {what}: wall {wall_ms:.2f} ms, device busy "
         f"{total_ms:.2f} ms ({total_ms / wall_ms:.0%}), "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in fam.most_common()))
@@ -2955,7 +2977,310 @@ def run_graphed_serving(state_dict: dict, device, k1_sites: int,
     return launches
 
 
+# ---------------------------------------------------------------------
+# phase 28: the ADM denoiser (viewfusion_tpu_torch/configs/adm-imagenet-64.yaml)
+
+ADM_CONFIG = "viewfusion_tpu_torch/configs/adm-imagenet-64.yaml"
+ADM_BATCH = 32      # one card's 32 of ADM's global 2048 over 64 cards
+ADM_ROWS = 112      # sum of stratified_count_multiset(32, 6)
+
+
+def adm_config() -> Config:
+    """The ADM ImageNet-64 YAML through the port's reader at its published
+    widths, at one card's batch of 32 (R = 112 packed rows)."""
+    raw = parse_yaml(Path(ADM_CONFIG).read_text())
+    raw["data"]["params"]["batch_size"] = ADM_BATCH
+    return Config.from_dict(raw)
+
+
+def adm_sites(cfg: Config, device, rows: int = ADM_ROWS):
+    """(L, C, act, per_sample, dtype) GroupNorm sites and (S, head width,
+    heads) attention sites of one ADM forward at ``rows`` rows, with their
+    counts, read by hooks on the model (per_sample: an AdaGN, whose affine
+    is (B, C))."""
+    torch.manual_seed(SEED)
+    model = ADM(cfg.denoiser, dtype=torch.bfloat16).to(device).eval()
+    gn, attn = Counter(), Counter()
+
+    def on_norm(m, a):
+        x = a[0]
+        gn.update([(x.shape[2] * x.shape[3], x.shape[1], m.act,
+                    isinstance(m, AdaGroupNorm), x.dtype)])
+
+    def on_attn(m, a):
+        _, s, c = a[0].shape
+        attn.update([(s, c // m.num_heads, m.num_heads)])
+
+    hooks = [m.register_forward_pre_hook(on_norm) for m in model.modules()
+             if isinstance(m, GroupNormAct)]
+    hooks += [m.register_forward_pre_hook(on_attn) for m in model.modules()
+              if isinstance(m, MHAttention)]
+    with torch.inference_mode():
+        model(*unet_inputs(rows, cfg.denoiser, device))
+    for h in hooks:
+        h.remove()
+    del model
+    torch.cuda.empty_cache()
+    return gn, attn
+
+
+def _affine(kind: str, rows: int, c: int, g) -> tuple:
+    """A seeded (C,) or (B, C) f32 scale and bias: an AdaGN's folded
+    ``gamma (1 + s)``, ``beta (1 + s) + t`` for (B, C)."""
+    shape = (rows, c) if kind == "(B, C)" else (c,)
+    device = g.device
+    scale = torch.randn(shape, generator=g, device=device) * 0.3 + 1.0
+    bias = torch.randn(shape, generator=g, device=device) * 0.3
+    return scale, bias
+
+
+def check_adm_group_norm(gn_sites, groups: int, device,
+                         rows: int = ADM_ROWS) -> dict:
+    """K1 and K2 at every distinct GroupNorm shape of one ADM forward at
+    ``rows`` rows, each with a (B, C) affine and with a (C,) one, against
+    the plain versions (within one bf16 ulp of the output's scale, as
+    phases 3 and 8; f32 within 1e-5 of it), two calls equal bit for bit,
+    timed with the plain versions and the byte bound, with each plan.  The
+    per-forward (K1) and per-step (K2) totals weight each shape by its
+    count with the affine the model gives it there; ``affine`` totals
+    count the AdaGN sites alone."""
+    g = torch.Generator(device=device).manual_seed(SEED + 28)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes_ms",
+            "max_abs_err")
+    tot = {k: dict.fromkeys(keys, 0.0)
+           for k in ("k1", "k2", "k1_affine", "k2_affine")}
+    shapes = Counter()
+    for (l, c, act, per_sample, dtype), n in gn_sites.items():
+        shapes[(l, c, act, dtype, per_sample)] += n
+    for l, c, act, dtype in sorted({k[:4] for k in shapes},
+                                   key=lambda k: k[:3] + (str(k[3]),)):
+        x = (torch.randn((rows, l, c), generator=g, device=device) * 1.5
+             + 0.5).to(dtype)
+        gy = torch.randn((rows, l, c), generator=g, device=device).to(dtype)
+        kw = dict(groups=groups, act=act)
+        for kind in ("(B, C)", "(C,)"):
+            count = shapes[(l, c, act, dtype, kind == "(B, C)")]
+            scale, bias = _affine(kind, rows, c, g)
+            name = f"L={l} C={c} act={act} {str(dtype)[6:]} {kind} x{count}"
+            y, mean, rstd = group_norm_act(x, scale, bias, return_stats=True,
+                                           **kw)
+            again = group_norm_act(x, scale, bias, return_stats=True, **kw)
+            y_r, mean_r, rstd_r = group_norm_act_reference(x, scale, bias,
+                                                           **kw)
+            args = (x, gy, scale, bias, mean, rstd)
+            out = group_norm_act_backward(*args, **kw)
+            out2 = group_norm_act_backward(*args, **kw)
+            ref = group_norm_act_backward_reference(*args, **kw)
+            torch.cuda.synchronize()
+            if not (all(torch.equal(a, b) for a, b in
+                        zip((y, mean, rstd), again))
+                    and all(torch.equal(a, b) for a, b in zip(out, out2))):
+                raise AssertionError(f"ADM K1/K2 {name}: two calls differ")
+            errs = []
+            for got, want in ((y, y_r), (out[0], ref[0])):
+                top = want.float().abs().max().item()
+                tol = (bf16_ulp(top) if dtype == torch.bfloat16
+                       else 1e-5 * top)
+                errs.append(((got.float() - want.float()).abs().max()
+                             .item(), tol))
+            torch.testing.assert_close(mean, mean_r, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(rstd, rstd_r, rtol=1e-4, atol=1e-5)
+            perr = max((a - b).abs().max().item() / b.abs().max().item()
+                       for a, b in zip(out[1:], ref[1:]))
+            if not (all(e <= t for e, t in errs) and perr <= 1e-4):
+                raise AssertionError(f"ADM K1/K2 {name}: y, dx (err, tol) "
+                                     f"{errs}, partials rel err {perr}")
+            ms1 = device_ms(lambda: group_norm_act(x, scale, bias, **kw))
+            plain1 = device_ms(lambda: group_norm_act_reference(
+                x, scale, bias, **kw))
+            ms2 = device_ms(lambda: group_norm_act_backward(*args, **kw))
+            plain2 = device_ms(
+                lambda: group_norm_act_backward_reference(*args, **kw))
+            aff = 2 * scale.numel() * 4
+            stats = 2 * rows * groups * 4
+            b1 = 2 * x.numel() * x.element_size() + aff + stats
+            b2 = 3 * x.numel() * x.element_size() + aff + stats \
+                + 2 * rows * c * 4
+            bound1, by1 = bound_ms(b1, 10 * x.numel(), torch.float32)
+            bound2, by2 = bound_ms(b2, 16 * x.numel(), torch.float32)
+            say(f"ADM {name}: K1 err {errs[0][0]:.3g} (tol "
+                f"{errs[0][1]:.3g}) {ms1 * 1e3:.1f} us, plain "
+                f"{plain1 * 1e3:.1f} us, bound {bound1 * 1e3:.1f} us ({by1})"
+                f" = {bound1 / ms1:.0%}; {plan_note(x)} | K2 dx err "
+                f"{errs[1][0]:.3g} (tol {errs[1][1]:.3g}) partials rel err "
+                f"{perr:.3g} {ms2 * 1e3:.1f} us, plain {plain2 * 1e3:.1f} "
+                f"us, bound {bound2 * 1e3:.1f} us ({by2}) = "
+                f"{bound2 / ms2:.0%}; {plan_note(x, backward=True)}")
+            for key, ms, plain, bms, nbytes, err in (
+                    ("k1", ms1, plain1, bound1, b1, errs[0][0]),
+                    ("k2", ms2, plain2, bound2, b2, errs[1][0])):
+                add_site(tot[key], count, ms, plain, 0.0, bms, nbytes, err)
+                if kind == "(B, C)":
+                    add_site(tot[key + "_affine"], count, ms, plain, 0.0,
+                             bms, nbytes, err)
+                # the shapes the model does not run count too
+                tot[key]["max_abs_err"] = max(tot[key]["max_abs_err"], err)
+        del x, gy
+        torch.cuda.empty_cache()
+    return tot
+
+
+def attention_backward_ms(prof) -> Counter:
+    """Device ms by kernel family of the kernels the closed-form attention
+    backward (``_Attention.backward``, ``ops/attention.py``) launched in a
+    profiled step: those under its autograd node's events."""
+    fam = Counter()
+
+    def walk(e):
+        for k in e.kernels:
+            fam[kernel_family(k.name)] += k.duration / 1e3
+        for ch in e.cpu_children:
+            walk(ch)
+
+    nodes = [e for e in prof.events() if "_AttentionBackward" in e.name]
+    top = [e for e in nodes
+           if not any(n is not e and n.time_range.start <= e.time_range.start
+                      and e.time_range.end <= n.time_range.end
+                      and n.thread == e.thread for n in nodes)]
+    for e in top:
+        walk(e)
+    return fam
+
+
+def run_adm_trainer(device, gn_sites, attn_sites) -> dict:
+    """The ADM's training step, the main path of its benchmark cell: the
+    Trainer at the ADM YAML (batch 32, R = 112) from seeded weights takes a
+    warm-up step, then one step with the launch counters zeroed just
+    before it, which must read one K1 and one K2 launch per GroupNorm site
+    (those with a (B, C) affine: one per AdaGN) and one K3 per attention
+    site; then a profiled step, its device time by kernel family and the
+    closed-form attention backward's own.  Returns the step's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = adm_config()
+    trainer = Trainer(cfg, device=device, seed=SEED)
+    rng = np.random.default_rng(SEED + 28)
+    batches = [train_batch(cfg, it, rng) for it in range(3)]
+    rows = int(batches[1]["view_count"].sum())
+    if rows != ADM_ROWS:
+        raise AssertionError(f"ADM batch of {ADM_BATCH}: {rows} rows, not "
+                             f"{ADM_ROWS}")
+    start = [p.detach().clone() for p in trainer.params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = trainer.train_step(batches[0]).item()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    for fn in (group_norm_act, group_norm_act_backward):
+        fn.launches = fn.affine_launches = 0
+    spatial_self_attention.launches = 0
+    mark = tracing.mark()
+    t0 = time.perf_counter()
+    loss = trainer.train_step(batches[1]).item()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"k1": group_norm_act.launches,
+                "k2": group_norm_act_backward.launches,
+                "k3": spatial_self_attention.launches,
+                "k1.affine": group_norm_act.affine_launches,
+                "k2.affine": group_norm_act_backward.affine_launches}
+    forwards = forwards_since(mark)
+    n_gn = sum(gn_sites.values())
+    n_ada = sum(n for k, n in gn_sites.items() if k[3])
+    want = {"k1": n_gn, "k2": n_gn, "k3": sum(attn_sites.values()),
+            "k1.affine": n_ada, "k2.affine": n_ada}
+    say(f"ADM train step spans: {span_summary(mark)}")
+    if forwards != 1 or launches != want:
+        raise AssertionError(f"ADM training launch counters {launches} != "
+                             f"{want} ({forwards} forwards)")
+    if not np.isfinite([first, loss]).all():
+        raise AssertionError(f"non-finite ADM loss: {first}, {loss}")
+    moved = sum(not torch.equal(a, b) for a, b in zip(trainer.params, start))
+    if not moved:
+        raise AssertionError("no ADM parameter changed in training")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"Trainer ADM ImageNet-64, {rows} rows bf16: losses {first:.5f} "
+        f"{loss:.5f}; ms per step: first {first_ms:.1f}, then "
+        f"{step_ms:.1f}; peak memory {peak_gb:.2f} GiB; {moved}/"
+        f"{len(start)} parameter tensors moved")
+    say(f"launches in one ADM training step: K1 {launches['k1']} (with a "
+        f"(B, C) affine {launches['k1.affine']}), K2 {launches['k2']} "
+        f"({launches['k2.affine']}), K3 {launches['k3']}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batches[2]).item()
+    busy = report_profile(prof, f"one ADM training step at {rows} rows",
+                          (time.perf_counter() - t0) * 1e3)
+    attn = attention_backward_ms(prof)
+    say(f"closed-form attention backward in that step: "
+        f"{sum(attn.values()):.2f} ms of the {busy:.2f} device-ms ("
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in attn.most_common())
+        + ")")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "busy_ms": busy,
+            "attention_backward_ms": sum(attn.values())}
+
+
+def run_adm_phase(device) -> dict:
+    """Phase 28: the ADM's GroupNorm and attention sites at R = 112, K1
+    and K2 at each (``check_adm_group_norm``), K3 at each attention site
+    against its plain version, timed, and one counted training step
+    (``run_adm_trainer``)."""
+    t_phase = time.perf_counter()
+    cfg = adm_config()
+    gn_sites, attn_sites = adm_sites(cfg, device)
+    say(f"ADM sites per forward at {ADM_ROWS} rows: "
+        f"{sum(gn_sites.values())} GroupNorm "
+        f"({sum(n for k, n in gn_sites.items() if k[3])} AdaGN with a "
+        f"(B, C) affine; {len(gn_sites)} distinct), "
+        f"{sum(attn_sites.values())} attention {dict(attn_sites)}")
+    gn = check_adm_group_norm(gn_sites, 32, device)
+    for key, per in (("k1", "forward"), ("k2", "step (backward)")):
+        for part in (key, key + "_affine"):
+            t = gn[part]
+            say(f"ADM {part.upper()} per {per} at {ADM_ROWS} rows: "
+                f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+                f"{t['bound_ms']:.3f} ms = {t['bound_ms'] / t['ms']:.1%}; "
+                f"largest err {t['max_abs_err']:.3g}")
+    # K3 at the ADM's (B * heads, S, head width), q, k and v the planes of
+    # one (3, B * heads, S, hd) copy as MHAttention hands them over
+    k3 = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_bytes_ms", "max_abs_err"), 0.0)
+    for (s, hd, heads), n in sorted(attn_sites.items()):
+        say(f"ADM K3 site: S={s}, {heads} heads of {hd}, x{n}")
+        site = check_attention(Counter({(s, hd): n}), device,
+                               rows=ADM_ROWS * heads, heads=True)
+        for k, v in site.items():
+            k3[k] = max(k3[k], v) if k == "max_abs_err" else k3[k] + v
+        torch.cuda.empty_cache()
+    say(f"ADM K3 per forward at {ADM_ROWS} rows: {k3['ms']:.3f} ms, plain "
+        f"{k3['plain_ms']:.3f} ms, SDPA {k3['library_ms']:.3f} ms, bound "
+        f"{k3['bound_ms']:.3f} ms = {k3['bound_ms'] / k3['ms']:.1%}")
+    step = run_adm_trainer(device, gn_sites, attn_sites)
+    say(f"phase 28 in {time.perf_counter() - t_phase:.1f} s")
+    return {"gn": gn, "k3": k3, **step}
+
+
+def adm_kernels(adm: dict) -> dict:
+    """Phase 28's numbers as the kernels line keeps them: K1 per ADM
+    forward, K2 per ADM step and K3 per ADM forward at 112 rows (all sites
+    and, for K1/K2, the AdaGN sites alone), and the step's launches."""
+    pick = ("ms", "plain_ms", "bound_ms", "max_abs_err")
+    out = {"per": f"one ADM forward (K1, K3) or training step (K2) at "
+                  f"{ADM_ROWS} rows",
+           "launches_one_step": adm["launches"],
+           "attention_backward_ms": adm["attention_backward_ms"],
+           "step_device_ms": adm["busy_ms"]}
+    for part in ("k1", "k1_affine", "k2", "k2_affine"):
+        out[part] = {k: adm["gn"][part][k] for k in pick}
+    out["k3"] = {k: adm["k3"][k] for k in pick + ("library_ms",)}
+    return out
+
+
 def main() -> int:
+    only_adm = sys.argv[1:2] == ["--adm"]
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
               file=sys.stderr)
@@ -2975,6 +3300,15 @@ def main() -> int:
     _native.library()
     say(f"build: {time.perf_counter() - t0:.1f} s")
     print(_native.build_log(), file=sys.stderr, flush=True)
+
+    if only_adm:    # 28 alone
+        adm = run_adm_phase(device)
+        say(card_line())
+        say(json.dumps({"adm": adm_kernels(adm)}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 3, 4. kernels at the paper UNet's sites
     cfg = Config.from_dict(PAPER_CONFIG)
@@ -3110,6 +3444,10 @@ def main() -> int:
 
     # 27. the served forward replayed as a CUDA graph (counted apart)
     graphed = run_graphed_serving(state_dict, device, k1_calls, k3_calls)
+    torch.cuda.empty_cache()
+
+    # 28. the ADM denoiser: K1/K2 with a (B, C) affine, K3, a train step
+    adm = run_adm_phase(device)
 
     kernels = []
     for name, route_src, replaces, tot, key, per in (
@@ -3174,7 +3512,8 @@ def main() -> int:
                f"{TRAIN_ROWS} rows"})
     say(card_line())
     say(json.dumps({"kernels": kernels,
-                    "graphed_serving_launches": graphed}))
+                    "graphed_serving_launches": graphed,
+                    "adm": adm_kernels(adm)}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -43,14 +43,14 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     # x, scale, bias, y, mean, rstd, B, L, C, G, then the plan (cluster,
     # rows_per_block, rows_staged, chunk_rows, threads, smem, vec), eps,
-    # act, dtype, stream
+    # act, affine_stride, dtype, stream
     "vf_group_norm_act_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # x, g, scale, bias, mean, rstd, dx, dscale_p, dbias_p, B, L, C, G,
-    # the plan, act, dtype, stream
+    # the plan, act, affine_stride, dtype, stream
     "vf_group_norm_act_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _P],
+                              _I, _P],
     # cluster, threads, smem, vec, dtype, active (out)
     "vf_group_norm_act_fwd_clusters": [_I, _I, _I, _I, _I, _P],
     "vf_group_norm_act_bwd_clusters": [_I, _I, _I, _I, _I, _P],

@@ -17,8 +17,9 @@ from typing import Any, Dict, List, Optional, Tuple
 from viewfusion_tpu_torch.utils.yaml11 import dump_yaml, parse_yaml
 
 __all__ = ["BetaScheduleConfig", "DiffusionConfig", "UNetConfig",
-           "DiTConfig", "SplitConfig", "DataConfig", "TrainConfig", "Config",
-           "load_config", "parse_yaml", "dump_yaml"]
+           "DiTConfig", "ADMConfig", "SplitConfig", "DataConfig",
+           "TrainConfig", "Config", "load_config", "parse_yaml",
+           "dump_yaml"]
 
 
 @dataclass(frozen=True)
@@ -106,6 +107,33 @@ class DiTConfig:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "DiTConfig":
+        return cls(**{k: v for k, v in d.items() if k in _field_names(cls)})
+
+
+@dataclass(frozen=True)
+class ADMConfig:
+    """ADM UNet hyper-params (``models/adm.py``; Dhariwal & Nichol's
+    ``guided_diffusion/unet.py`` flags: ``model_channels``,
+    ``channel_mult``, ``num_res_blocks``, ``attention_resolutions`` as
+    pixel sizes, ``num_head_channels``, ``dropout``; scale-shift norm and
+    up/down ResBlocks always on)."""
+
+    image_size: int = 64
+    in_channel: int = 6
+    out_channel: int = 6
+    model_channels: int = 192
+    channel_mult: Tuple[int, ...] = (1, 2, 3, 4)
+    num_res_blocks: int = 3
+    attention_resolutions: Tuple[int, ...] = (32, 16, 8)
+    num_head_channels: int = 64
+    dropout: float = 0.1
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ADMConfig":
+        d = dict(d)
+        for key in ("channel_mult", "attention_resolutions"):
+            if key in d:
+                d[key] = tuple(d[key])
         return cls(**{k: v for k, v in d.items() if k in _field_names(cls)})
 
 
@@ -222,8 +250,9 @@ class Config:
     @property
     def denoiser(self):
         """Typed params of the active denoiser family."""
-        if self.denoise_net == "dit":
-            return DiTConfig.from_dict(
+        family = {"dit": DiTConfig, "adm": ADMConfig}.get(self.denoise_net)
+        if family is not None:
+            return family.from_dict(
                 self.raw.get("model", {}).get("denoise_net_params", {})
             )
         return self.unet

@@ -10,7 +10,11 @@
 //   mean = S1 / n, var = max(S2 / n - mean^2, 0), rstd = rsqrt(var + eps),
 //   y = act(x * sc + sh), sc = rstd * scale[c], sh = bias[c] - mean * sc,
 // all in f32; y is stored in x's dtype, mean/rstd as (B, G) f32 for the
-// backward kernel.  act is identity or SiLU.
+// backward kernel.  act is identity or SiLU.  scale and bias are (C,), the
+// GroupNorm's own affine, or (B, C), one per (sample, channel) (a
+// scale-shift norm's, folded into the GroupNorm's affine by the caller),
+// read at b * C + c by an instantiation of its own (kPerSample), so that
+// the per-channel kernel is the same code as before it existed.
 //
 // Bound on the H100: bytes.  About 10 flops per element against 4 bytes
 // moved in bf16 (2 read, 2 written) is ~2.5 flop/byte, far below the
@@ -55,7 +59,7 @@
 
 namespace {
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool kPerSample>
 __global__ void __launch_bounds__(vf::kMaxThreads)
     gn_fwd(const T* __restrict__ x, const float* __restrict__ scale,
            const float* __restrict__ bias, T* __restrict__ y,
@@ -94,6 +98,10 @@ __global__ void __launch_bounds__(vf::kMaxThreads)
     const T* src[1] = {x + (static_cast<size_t>(b) * L + row0) * C};
     T* const dst[1] = {stage};
     vf::stage_rows<T, 1>(bars, dst, src, staged, chunk_rows, C);
+  }
+  if constexpr (kPerSample) {  // this sample's row of the (B, C) affine
+    scale += static_cast<size_t>(b) * C;
+    bias += static_cast<size_t>(b) * C;
   }
   float vsc[VEC], vsh[VEC];  // scale and bias of this thread's channels
 #pragma unroll
@@ -179,23 +187,28 @@ __global__ void __launch_bounds__(vf::kMaxThreads)
   for (int r = staged + r0; r < rows; r += rpi) normalize(gload(r), r);
 }
 
-template <typename T>
+template <typename T, bool S>
 auto kernel_for(int vec) -> void (*)(const T*, const float*, const float*,
                                      T*, float*, float*, int, int, int, int,
                                      int, int, float, int) {
-  if (vec == 8 && sizeof(T) == 2) return gn_fwd<T, (sizeof(T) == 2 ? 8 : 4)>;
-  if (vec == 4) return gn_fwd<T, 4>;
-  if (vec == 2) return gn_fwd<T, 2>;
-  return gn_fwd<T, 1>;
+  if (vec == 8 && sizeof(T) == 2)
+    return gn_fwd<T, (sizeof(T) == 2 ? 8 : 4), S>;
+  if (vec == 4) return gn_fwd<T, 4, S>;
+  if (vec == 2) return gn_fwd<T, 2, S>;
+  return gn_fwd<T, 1, S>;
 }
 
 template <typename T>
 int dispatch(const vf::GnPlan& p, const void* x, const void* scale,
              const void* bias, void* y, void* mean, void* rstd, int B, int L,
-             int C, int G, float eps, int act, cudaStream_t stream) {
-  if (!vf::gn_check_plan(p, B, L, C, G, sizeof(T), 1, {x, y}))
+             int C, int G, float eps, int act, int affine_stride,
+             cudaStream_t stream) {
+  if (!vf::gn_check_plan(p, B, L, C, G, sizeof(T), 1, {x, y}) ||
+      !(affine_stride == 0 || affine_stride == C))
     return cudaErrorInvalidValue;
-  return vf::gn_launch(kernel_for<T>(p.vec), p, B, stream,
+  return vf::gn_launch(affine_stride ? kernel_for<T, true>(p.vec)
+                                     : kernel_for<T, false>(p.vec),
+                       p, B, stream,
                        static_cast<const T*>(x),
                        static_cast<const float*>(scale),
                        static_cast<const float*>(bias), static_cast<T*>(y),
@@ -207,20 +220,21 @@ int dispatch(const vf::GnPlan& p, const void* x, const void* scale,
 }  // namespace
 
 // mean and rstd may both be null (the statistics are then not stored).
+// scale and bias are (C,) with affine_stride 0, (B, C) with C.
 extern "C" int vf_group_norm_act_fwd(
     const void* x, const void* scale, const void* bias, void* y, void* mean,
     void* rstd, int B, int L, int C, int G, int cluster, int rows_per_block,
     int rows_staged, int chunk_rows, int threads, int smem, int vec,
-    float eps, int act, int dtype, void* stream) {
+    float eps, int act, int affine_stride, int dtype, void* stream) {
   const vf::GnPlan p{cluster, rows_per_block, rows_staged, chunk_rows,
                      threads, smem, vec};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == vf::kBFloat16)
     return dispatch<__nv_bfloat16>(p, x, scale, bias, y, mean, rstd, B, L,
-                                   C, G, eps, act, st);
+                                   C, G, eps, act, affine_stride, st);
   if (dtype == vf::kFloat32)
     return dispatch<float>(p, x, scale, bias, y, mean, rstd, B, L, C, G, eps,
-                           act, st);
+                           act, affine_stride, st);
   return cudaErrorInvalidValue;
 }
 
@@ -230,9 +244,10 @@ extern "C" int vf_group_norm_act_fwd_clusters(int cluster, int threads,
                                               int* active) {
   const vf::GnPlan p{cluster, 1, 0, 1, threads, smem, vec};
   if (dtype == vf::kBFloat16)
-    return vf::gn_active_clusters(kernel_for<__nv_bfloat16>(vec), p, active);
+    return vf::gn_active_clusters(kernel_for<__nv_bfloat16, false>(vec), p,
+                                  active);
   if (dtype == vf::kFloat32)
-    return vf::gn_active_clusters(kernel_for<float>(vec), p, active);
+    return vf::gn_active_clusters(kernel_for<float, false>(vec), p, active);
   return cudaErrorInvalidValue;
 }
 

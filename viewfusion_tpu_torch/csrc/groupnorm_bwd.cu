@@ -16,7 +16,9 @@
 //     scale / n (n = L * C / G),
 //   dx = dy * sc - (xhat * rstd * bb + rstd * a),
 // all in f32; dx is stored in x's dtype, rounded once; the per-sample
-// partials are f32 and summed over B by the caller in a fixed order.
+// partials are f32 and summed over B by the caller in a fixed order (or
+// kept per sample, where the affine is per sample).  A (B, C) affine is
+// read at b * C + c by an instantiation of its own (kPerSample), as in K1.
 //
 // Bound on the H100: bytes.  About 16 flops per element against 6 bytes
 // moved in bf16 (x and g read, dx written) is ~3 flop/byte, far below the
@@ -54,7 +56,7 @@ __device__ __forceinline__ float act_grad(float z, int act) {
   return s * (1.f + z * (1.f - s));
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool kPerSample>
 __global__ void __launch_bounds__(vf::kMaxThreads)
     gn_bwd(const T* __restrict__ x, const T* __restrict__ g,
            const float* __restrict__ scale, const float* __restrict__ bias,
@@ -101,6 +103,10 @@ __global__ void __launch_bounds__(vf::kMaxThreads)
     vf::stage_rows<T, 2>(bars, dst, src, staged, chunk_rows, C);
   }
 
+  if constexpr (kPerSample) {  // this sample's row of the (B, C) affine
+    scale += static_cast<size_t>(b) * C;
+    bias += static_cast<size_t>(b) * C;
+  }
   // this thread's channels: rstd, mean * rstd, sc, sh
   float rs[VEC], mr[VEC], sc[VEC], sh[VEC];
 #pragma unroll
@@ -195,30 +201,34 @@ __global__ void __launch_bounds__(vf::kMaxThreads)
     grad(gload(xb, r), gload(gb, r), r);
 }
 
-template <typename T>
+template <typename T, bool S>
 auto kernel_for(int vec) -> void (*)(const T*, const T*, const float*,
                                      const float*, const float*,
                                      const float*, T*, float*, float*, int,
                                      int, int, int, int, int, int) {
-  if (vec == 8 && sizeof(T) == 2) return gn_bwd<T, (sizeof(T) == 2 ? 8 : 4)>;
-  if (vec == 4) return gn_bwd<T, 4>;
-  if (vec == 2) return gn_bwd<T, 2>;
-  return gn_bwd<T, 1>;
+  if (vec == 8 && sizeof(T) == 2)
+    return gn_bwd<T, (sizeof(T) == 2 ? 8 : 4), S>;
+  if (vec == 4) return gn_bwd<T, 4, S>;
+  if (vec == 2) return gn_bwd<T, 2, S>;
+  return gn_bwd<T, 1, S>;
 }
 
 struct Args {
   const void *x, *g, *scale, *bias, *mean, *rstd;
   void *dx, *dscale_p, *dbias_p;
-  int B, L, C, G, act;
+  int B, L, C, G, act, affine_stride;
 };
 
 template <typename T>
 int dispatch(const vf::GnPlan& p, const Args& a, cudaStream_t stream) {
   if (!vf::gn_check_plan(p, a.B, a.L, a.C, a.G, sizeof(T), 2,
-                         {a.x, a.g, a.dx}))
+                         {a.x, a.g, a.dx}) ||
+      !(a.affine_stride == 0 || a.affine_stride == a.C))
     return cudaErrorInvalidValue;
   return vf::gn_launch(
-      kernel_for<T>(p.vec), p, a.B, stream, static_cast<const T*>(a.x),
+      a.affine_stride ? kernel_for<T, true>(p.vec)
+                      : kernel_for<T, false>(p.vec),
+      p, a.B, stream, static_cast<const T*>(a.x),
       static_cast<const T*>(a.g), static_cast<const float*>(a.scale),
       static_cast<const float*>(a.bias), static_cast<const float*>(a.mean),
       static_cast<const float*>(a.rstd), static_cast<T*>(a.dx),
@@ -233,11 +243,11 @@ extern "C" int vf_group_norm_act_bwd(
     const void* mean, const void* rstd, void* dx, void* dscale_p,
     void* dbias_p, int B, int L, int C, int G, int cluster,
     int rows_per_block, int rows_staged, int chunk_rows, int threads,
-    int smem, int vec, int act, int dtype, void* stream) {
+    int smem, int vec, int act, int affine_stride, int dtype, void* stream) {
   const vf::GnPlan p{cluster, rows_per_block, rows_staged, chunk_rows,
                      threads, smem, vec};
   const Args a{x, g, scale, bias, mean, rstd, dx, dscale_p, dbias_p,
-               B, L, C, G, act};
+               B, L, C, G, act, affine_stride};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == vf::kBFloat16) return dispatch<__nv_bfloat16>(p, a, st);
   if (dtype == vf::kFloat32) return dispatch<float>(p, a, st);
@@ -250,8 +260,9 @@ extern "C" int vf_group_norm_act_bwd_clusters(int cluster, int threads,
                                               int* active) {
   const vf::GnPlan p{cluster, 1, 0, 1, threads, smem, vec};
   if (dtype == vf::kBFloat16)
-    return vf::gn_active_clusters(kernel_for<__nv_bfloat16>(vec), p, active);
+    return vf::gn_active_clusters(kernel_for<__nv_bfloat16, false>(vec), p,
+                                  active);
   if (dtype == vf::kFloat32)
-    return vf::gn_active_clusters(kernel_for<float>(vec), p, active);
+    return vf::gn_active_clusters(kernel_for<float, false>(vec), p, active);
   return cudaErrorInvalidValue;
 }

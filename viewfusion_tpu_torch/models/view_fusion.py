@@ -2,7 +2,7 @@
 reverse samplers of the port (counterpart of
 ``viewfusion_tpu/models/view_fusion.py``).
 
-One shared denoiser (the UNet or the DiT) predicts the noise of every
+One shared denoiser (the UNet, the DiT or the ADM) predicts the noise of every
 (conditioning view, noisy target) pair; a per-pixel softmax over the
 views (masked to each sample's ``view_count``) composes the
 predictions.  The dense layout pads
@@ -46,6 +46,7 @@ import torch
 
 from viewfusion_tpu_torch import tracing
 from viewfusion_tpu_torch.config import Config
+from viewfusion_tpu_torch.models.adm import ADM
 from viewfusion_tpu_torch.models.dit import DiT
 from viewfusion_tpu_torch.models.graphed import GraphedForward
 from viewfusion_tpu_torch.models.unet import UNet
@@ -153,12 +154,14 @@ def _lam(g):
 class ViewFusion:
     """The denoiser, the active schedule and the composition flags.
 
-    ``unet`` holds the denoiser, a :class:`UNet` or a :class:`DiT` (same
-    call contract), which ``graphs`` calls (a CUDA graph replayed where
-    the call allows it).  Each denoiser call is a ``unet.forward`` span
-    and each step of a sampler a ``sampler.step`` span (``tracing.py``)."""
+    ``unet`` holds the denoiser, a :class:`UNet`, a :class:`DiT` or an
+    :class:`ADM` (same call contract), which ``graphs`` calls (a CUDA
+    graph replayed where the call allows it).  Each denoiser call is a
+    ``unet.forward`` span and each step of a sampler a ``sampler.step``
+    span (``tracing.py``)."""
 
-    def __init__(self, unet: Union[UNet, DiT], schedule: DiffusionSchedule,
+    def __init__(self, unet: Union[UNet, DiT, ADM],
+                 schedule: DiffusionSchedule,
                  weighting_train: bool = True,
                  weighting_inference: bool = True):
         self.unet = unet
@@ -178,6 +181,8 @@ class ViewFusion:
             denoiser = UNet(cfg.denoiser, dtype=dtype, remat=cfg.train.remat)
         elif cfg.denoise_net == "dit":
             denoiser = DiT(cfg.denoiser, dtype=dtype, remat=cfg.train.remat)
+        elif cfg.denoise_net == "adm":
+            denoiser = ADM(cfg.denoiser, dtype=dtype, remat=cfg.train.remat)
         else:
             raise ValueError("Provided denoising function is not supported!")
         # the *train* schedule is active for inference too

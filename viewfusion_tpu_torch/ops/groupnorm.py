@@ -11,6 +11,13 @@ On CUDA tensors the forward launches ``csrc/groupnorm.cu`` (K1) and the
 backward ``csrc/groupnorm_bwd.cu`` (K2); on CPU tensors both run their
 plain versions, :func:`group_norm_act_reference` and
 :func:`group_norm_act_backward_reference`.
+
+The affine ``scale``/``bias`` is (C,), the GroupNorm's own, or (B, C), one
+per (sample, channel): a scale-shift norm (AdaGN) whose per-sample
+``(1 + s, t)`` the caller folds into the GroupNorm's affine.  The C
+entries take the affine's sample stride (0 or C) and run a (B, C) affine
+in a kernel instantiation of its own, so the per-channel kernels are
+unchanged; the backward's affine gradients are shaped like the affine.
 """
 
 from __future__ import annotations
@@ -41,9 +48,22 @@ def _check_args(x: torch.Tensor, groups: int, act: str) -> None:
         raise ValueError(f"unsupported act {act!r}")
 
 
+def _check_affine(what: str, x: torch.Tensor, scale, bias) -> None:
+    b, c = x.shape[0], x.shape[-1]
+    if tuple(scale.shape) not in ((c,), (b, c)) or bias.shape != scale.shape:
+        raise ValueError(f"{what}: scale and bias must both be ({c},) or "
+                         f"({b}, {c}), got {tuple(scale.shape)} and "
+                         f"{tuple(bias.shape)}")
+
+
 def _per_channel(stat: torch.Tensor, cpg: int) -> torch.Tensor:
     """(B, G) group statistic -> (B, 1, C) f32."""
     return stat.float().repeat_interleave(cpg, dim=1)[:, None, :]
+
+
+def _rows(affine: torch.Tensor) -> torch.Tensor:
+    """A (C,) or (B, C) affine -> (1, 1, C) or (B, 1, C) f32."""
+    return affine.float().reshape(-1, 1, affine.shape[-1])
 
 
 def group_norm_act_reference(x, scale, bias, *, groups, eps=1e-5,
@@ -52,8 +72,10 @@ def group_norm_act_reference(x, scale, bias, *, groups, eps=1e-5,
 
     Returns ``(y, mean, rstd)``: y in x's dtype and shape, mean/rstd
     (B, G) f32.  Statistics use the clamped E[x^2] - mean^2 variance of
-    the TPU kernel (viewfusion_tpu/ops/groupnorm.py:168-189)."""
+    the TPU kernel (viewfusion_tpu/ops/groupnorm.py:168-189).  ``scale``
+    and ``bias`` are (C,) or (B, C)."""
     _check_args(x, groups, act)
+    _check_affine("group_norm_act", x, scale, bias)
     b, c = x.shape[0], x.shape[-1]
     cpg = c // groups
     xf = x.reshape(b, -1, groups, cpg).float()
@@ -61,8 +83,8 @@ def group_norm_act_reference(x, scale, bias, *, groups, eps=1e-5,
     mean = xf.sum(dim=(1, 3)) / n
     var = torch.clamp((xf * xf).sum(dim=(1, 3)) / n - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + eps)
-    sc = _per_channel(rstd, cpg) * scale.float()
-    sh = bias.float() - _per_channel(mean, cpg) * sc
+    sc = _per_channel(rstd, cpg) * _rows(scale)
+    sh = _rows(bias) - _per_channel(mean, cpg) * sc
     z = xf.reshape(b, -1, c) * sc + sh
     if act == "silu":
         z = z * torch.sigmoid(z)
@@ -77,14 +99,16 @@ def group_norm_act_backward_reference(x, g, scale, bias, mean, rstd, *,
     dscale = sum dy * xhat), then dx = dy * sc - (xhat * rb + ra).
 
     Returns ``(dx, dscale_p, dbias_p)``: dx in x's dtype and shape, the
-    partials per sample (B, C) f32, as ``_pallas_bwd`` returns them."""
+    partials per sample (B, C) f32, as ``_pallas_bwd`` returns them.
+    ``scale`` and ``bias`` are (C,) or (B, C)."""
     _check_args(x, groups, act)
+    _check_affine("group_norm_act_backward", x, scale, bias)
     b, c = x.shape[0], x.shape[-1]
     cpg = c // groups
     xf = x.reshape(b, -1, c).float()
     gf = g.reshape(b, -1, c).float()
     n = xf.shape[1] * cpg
-    scale, bias = scale.float(), bias.float()
+    scale, bias = _rows(scale), _rows(bias)
     rstd_c, mean_c = _per_channel(rstd, cpg), _per_channel(mean, cpg)
     sc = rstd_c * scale
     sh = bias - mean_c * sc
@@ -96,8 +120,8 @@ def group_norm_act_backward_reference(x, g, scale, bias, mean, rstd, *,
         dy = gf * (s * (1.0 + z * (1.0 - s)))
     dbias = dy.sum(dim=1)
     dscale = (dy * xhat).sum(dim=1)
-    a_g = (dbias * scale).reshape(b, groups, cpg).sum(dim=-1) / n
-    b_g = (dscale * scale).reshape(b, groups, cpg).sum(dim=-1) / n
+    a_g = (dbias * scale[:, 0]).reshape(b, groups, cpg).sum(dim=-1) / n
+    b_g = (dscale * scale[:, 0]).reshape(b, groups, cpg).sum(dim=-1) / n
     ra = rstd_c * _per_channel(a_g, cpg)
     rb = rstd_c * _per_channel(b_g, cpg)
     dx = dy * sc - (xhat * rb + ra)
@@ -242,8 +266,10 @@ def _launch(x, scale, bias, groups, eps, act, return_stats):
     if not x.is_contiguous():
         raise ValueError("group_norm_act: x must be contiguous (B, ..., C)")
     b, c = x.shape[0], x.shape[-1]
-    _check_f32("group_norm_act", x, scale=(scale, (c,)), bias=(bias, (c,)))
+    _check_f32("group_norm_act", x, scale=(scale, tuple(scale.shape)),
+               bias=(bias, tuple(scale.shape)))
     l = x.numel() // (b * c)
+    per_sample = scale.dim() == 2
     lib = _native.library()
     y = torch.empty_like(x)
     plan = _plan_for(x, 1, y)
@@ -257,9 +283,11 @@ def _launch(x, scale, bias, groups, eps, act, return_stats):
     err = lib.vf_group_norm_act_fwd(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
         mean_p, rstd_p, b, l, c, groups, *_plan_args(plan),
-        float(eps), _ACTS[act], code, _native.stream_ptr(x.device))
+        float(eps), _ACTS[act], c if per_sample else 0, code,
+        _native.stream_ptr(x.device))
     _native.check(err, "group_norm_act")
     group_norm_act.launches += 1
+    group_norm_act.affine_launches += per_sample
     if not return_stats:
         return y, None, None
     return y, stats[0], stats[1]
@@ -284,9 +312,11 @@ def _launch_backward(x, g, scale, bias, mean, rstd, groups, act):
     if not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError(f"{what}: x and g must be contiguous (B, ..., C)")
     b, c = x.shape[0], x.shape[-1]
-    _check_f32(what, x, scale=(scale, (c,)), bias=(bias, (c,)),
+    _check_f32(what, x, scale=(scale, tuple(scale.shape)),
+               bias=(bias, tuple(scale.shape)),
                mean=(mean, (b, groups)), rstd=(rstd, (b, groups)))
     l = x.numel() // (b * c)
+    per_sample = scale.dim() == 2
     lib = _native.library()
     dx = torch.empty_like(x)
     plan = _plan_for(x, 2, g, dx)
@@ -295,10 +325,11 @@ def _launch_backward(x, g, scale, bias, mean, rstd, groups, act):
     err = lib.vf_group_norm_act_bwd(
         x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), p, p + 4 * b * c,
-        b, l, c, groups, *_plan_args(plan), _ACTS[act], code,
-        _native.stream_ptr(x.device))
+        b, l, c, groups, *_plan_args(plan), _ACTS[act],
+        c if per_sample else 0, code, _native.stream_ptr(x.device))
     _native.check(err, what)
     group_norm_act_backward.launches += 1
+    group_norm_act_backward.affine_launches += per_sample
     return dx, partials[0], partials[1]
 
 
@@ -307,12 +338,13 @@ def group_norm_act_backward(x, g, scale, bias, mean, rstd, *, groups,
     """Gradient of :func:`group_norm_act` from its saved statistics.
 
     ``x`` and the upstream gradient ``g`` are contiguous (B, ..., C) of
-    one dtype (bf16 or f32), ``scale``/``bias`` (C,) f32 and
+    one dtype (bf16 or f32), ``scale``/``bias`` (C,) or (B, C) f32 and
     ``mean``/``rstd`` (B, G) f32 as the forward returns them.  Returns
     ``(dx, dscale_p, dbias_p)``: dx in x's dtype, the dscale/dbias
     partials per sample (B, C) f32.  CUDA tensors launch kernel K2; CPU
     tensors run the plain version."""
     _check_args(x, groups, act)
+    _check_affine("group_norm_act_backward", x, scale, bias)
     if x.is_cuda:
         return _launch_backward(x, g, scale, bias, mean, rstd, groups, act)
     if x.device.type == "cpu":
@@ -323,9 +355,11 @@ def group_norm_act_backward(x, g, scale, bias, mean, rstd, *, groups,
 
 
 class _GroupNormAct(torch.autograd.Function):
-    """K1 forward, K2 backward (plain versions on the CPU).  dscale and
-    dbias are the sums over B of the per-sample partials, in a fixed
-    order (``_gn_act_bwd``, viewfusion_tpu/ops/groupnorm.py:714-720)."""
+    """K1 forward, K2 backward (plain versions on the CPU).  For a (C,)
+    affine, dscale and dbias are the sums over B of the per-sample
+    partials, in a fixed order (``_gn_act_bwd``,
+    viewfusion_tpu/ops/groupnorm.py:714-720); for a (B, C) affine they
+    are the partials themselves."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, groups, eps, act):
@@ -344,7 +378,9 @@ class _GroupNormAct(torch.autograd.Function):
             group_norm_act_backward.grad_copies += 1
         dx, dscale_p, dbias_p = group_norm_act_backward(
             x, gy, scale, bias, mean, rstd, groups=ctx.groups, act=ctx.act)
-        return dx, dscale_p.sum(dim=0), dbias_p.sum(dim=0), None, None, None
+        if scale.dim() == 1:
+            dscale_p, dbias_p = dscale_p.sum(dim=0), dbias_p.sum(dim=0)
+        return dx, dscale_p, dbias_p, None, None, None
 
 
 def group_norm_act(x, scale, bias, *, groups, eps=1e-5, act="none",
@@ -353,13 +389,16 @@ def group_norm_act(x, scale, bias, *, groups, eps=1e-5, act="none",
     per sample over all other axes, then optional SiLU (``act="silu"``).
 
     ``x`` is bf16 or f32 and contiguous (NHWC, or the (B, H*W, C) rows of
-    a channels_last NCHW tensor); ``scale``/``bias`` are (C,) f32.
+    a channels_last NCHW tensor); ``scale``/``bias`` are (C,) f32, or
+    (B, C) f32 for an affine per sample (the backward then gives their
+    gradients per sample).
     Returns y in x's dtype, plus (mean, rstd) (B, G) f32 when
     ``return_stats``.  CUDA tensors launch kernel K1; CPU tensors run the
     plain version.  Where autograd records (an input requires grad), the
     call goes through an autograd Function whose backward is K2 on CUDA
     and the plain backward on the CPU."""
     _check_args(x, groups, act)
+    _check_affine("group_norm_act", x, scale, bias)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
                                     or bias.requires_grad):
         y, mean, rstd = _GroupNormAct.apply(x, scale, bias, groups, eps, act)
@@ -371,9 +410,15 @@ def group_norm_act(x, scale, bias, *, groups, eps=1e-5, act="none",
 
 group_norm_act.launches = 0
 group_norm_act_backward.launches = 0
+# launches with an affine per (sample, channel)
+group_norm_act.affine_launches = 0
+group_norm_act_backward.affine_launches = 0
 # upstream gradients that arrived in another layout and were copied to
 # contiguous rows before K2
 group_norm_act_backward.grad_copies = 0
 tracing.watch("k1.launches", group_norm_act, "launches")
 tracing.watch("k2.launches", group_norm_act_backward, "launches")
+tracing.watch("k1.affine_launches", group_norm_act, "affine_launches")
+tracing.watch("k2.affine_launches", group_norm_act_backward,
+              "affine_launches")
 tracing.watch("k2.grad_copies", group_norm_act_backward, "grad_copies")

@@ -1,13 +1,16 @@
 """The port's denoisers and training state <-> the JAX package's trees.
 
-Two name maps, one per denoiser family, chosen by the tree's shape in
+Three name maps, one per denoiser family, chosen by the tree's shape in
 one place (:func:`_map_entries`): the UNet's (the port keeps its own copy
-of the name map of ``viewfusion_tpu/utils/torch_convert.py``) and the
+of the name map of ``viewfusion_tpu/utils/torch_convert.py``), the
 DiT's (``Dense_0``/``Dense_1`` <-> ``cond_mlp.0``/``cond_mlp.2``,
 ``patchify``, ``block_i/{adaLN, _MHAttention_0/{qkv, proj}, Dense_0,
 Dense_1}`` <-> ``blocks.i.{adaLN, attn.qkv, attn.proj, fc1, fc2}``,
-``final_adaLN``, ``unpatchify``; its LayerNorms hold no parameters).
-Leaves map as:
+``final_adaLN``, ``unpatchify``; its LayerNorms hold no parameters) and
+the ADM's, which the JAX package does not have: its tree nests the
+port's module path, one dict a part (``input_blocks.1.0.in_layers.2``
+<-> ``input_blocks/1/0/in_layers/2``), so that the ADM's run dirs and
+checkpoints take the same file format.  Leaves map as:
 
   * conv kernel (kh, kw, I, O) <-> weight (O, I, kh, kw)
   * Dense kernel (I, O)        <-> Linear weight (O, I)
@@ -118,11 +121,48 @@ def _dit_entries(depth: int) -> List[_Entry]:
     return out
 
 
+# the ADM's layers that are not convolutions, by the end of their prefix
+_ADM_KINDS = {"in_layers.0": "norm", "out_layers.0": "norm", "norm": "norm",
+              "out.0": "norm", "time_embed.0": "linear",
+              "time_embed.2": "linear", "emb_layers.1": "linear",
+              "qkv": "linear", "proj": "linear"}
+
+
+def _adm_entries(names) -> List[_Entry]:
+    """The ADM's map from the port's ``state_dict`` names: one entry a
+    layer, its JAX path the parts of its prefix."""
+    out: List[_Entry] = []
+    for name in names:
+        prefix = name.rsplit(".", 1)[0]
+        if out and out[-1][0] == prefix:
+            continue
+        kind = next((k for tail, k in _ADM_KINDS.items()
+                     if prefix == tail or prefix.endswith("." + tail)),
+                    "conv")
+        out.append((prefix, tuple(prefix.split(".")), kind, False))
+    return out
+
+
+def _tree_layers(tree, path=()):
+    """The ``state_dict`` names of a JAX-side tree that nests module
+    paths: every node that holds a ``kernel`` or a ``scale``."""
+    if "kernel" in tree or "scale" in tree:
+        prefix = ".".join(path)
+        return [f"{prefix}.weight", f"{prefix}.bias"]
+    return [n for k, v in tree.items() if isinstance(v, dict)
+            for n in _tree_layers(v, path + (k,))]
+
+
 def _map_entries(keys, jax_side: bool) -> List[_Entry]:
     """The name map for a tree: ``keys`` are the top-level names of a JAX
-    params tree (``jax_side``) or the port's ``state_dict`` names.  A tree
-    with a ``patchify`` layer is a DiT's, else a UNet's."""
+    params tree (``jax_side``; the tree itself for an ADM's) or the port's
+    ``state_dict`` names.  A tree with a ``time_embed`` layer is an
+    ADM's, with a ``patchify`` layer a DiT's, else a UNet's."""
+    if jax_side and isinstance(keys, dict) and "time_embed" in keys:
+        return _adm_entries(_tree_layers(keys))
     keys = list(keys)
+    if not jax_side and any(k.startswith("time_embed.") for k in keys):
+        return _adm_entries(keys)
     if jax_side:
         is_dit = "patchify" in keys
         blocks = {int(m.group(1)) for m in

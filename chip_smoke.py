@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --adm    # phases 1, 2 and 28
+    python3 chip_smoke.py --k5     # phases 1, 2, 29 and 28 (shortcut)
 
 Phases (any failure raises and exits non-zero without the final line):
   1. device: the card's name and power limit (nvidia-smi); CUDA present;
@@ -175,10 +176,20 @@ Phases (any failure raises and exits non-zero without the final line):
      three attention sites, timed; then the Trainer takes a warm-up step
      and one step with the launch counters zeroed just before it, which
      must read one K1 and one K2 launch per GroupNorm site (one with a
-     (B, C) affine per AdaGN) and one K3 launch per attention site; a
-     profiled step, its device time by kernel family and the device time
-     of the kernels under the closed-form attention backward's autograd
-     node (``_Attention.backward``).
+     (B, C) affine per AdaGN), one K3 and one K5 launch per attention site
+     and no closed-form backward; a profiled step, its device time by
+     kernel family and the device time of the kernels under the attention
+     backward's autograd node (``_Attention.backward``);
+ 29. K5, the fused attention backward for heads of 64, at every attention
+     site of the DiT (R = 98: (588, 256, 64) x 12) and the ADM (R = 112:
+     (672, 1024, 64) x 7, (1008, 256, 64) x 7, (1344, 64, 64) x 8) with an
+     upstream gradient of bf16 values and a general f32 one, against the
+     closed form and an f64 closed form, two calls equal bit for bit;
+     timed with its bound, the closed form and the autograd backward of
+     F.scaled_dot_product_attention (the library yardstick, never called
+     by the port); K3's forward at the ADM's sites; one counted training
+     step of the DiT (12 K5 launches, 0 closed-form backwards) and of the
+     paper UNet (0 and 8: single heads of 192 and 320 channels).
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 
@@ -216,7 +227,10 @@ f32 weights equal the .pt's bit for bit, and so do its served images the
 unconverted weights' (the same requests and seeds on one card); K1 and
 K3 at the path's row counts (the eval's packed rows too) within the
 bounds above.  Phase 26: every fixture's decode equal to Pillow's bit for
-bit and compute_metrics equal (the decoders are exact).
+bit and compute_metrics equal (the decoders are exact).  Phase 29: K5's
+error against f64 no larger than twice the closed form's plus one bf16
+ulp of the output's scale, and within two bf16 ulps of the closed form
+(both round an f32 value to bf16 once).
 """
 
 from __future__ import annotations
@@ -249,7 +263,8 @@ from viewfusion_tpu_torch.models import unet as unet_module
 from viewfusion_tpu_torch.models.unet import GroupNormAct, SelfAttention, UNet
 from viewfusion_tpu_torch.models.view_fusion import ViewFusion
 from viewfusion_tpu_torch.ops.attention import (
-    spatial_self_attention, spatial_self_attention_reference)
+    _Attention, attention_backward, spatial_self_attention,
+    spatial_self_attention_backward, spatial_self_attention_reference)
 from viewfusion_tpu_torch.ops.conv_wgrad import (conv3x3, conv3x3_wgrad,
                                                  conv3x3_wgrad_reference)
 from viewfusion_tpu_torch.ops.groupnorm import (
@@ -666,6 +681,7 @@ def kernel_family(name: str) -> str:
     return ("K2 groupnorm bwd" if "gn_bwd" in low else
             "K1 groupnorm" if "gn_" in low else
             "K3 attention" if "attn_fwd" in low else
+            "K5 attention bwd" if "attn_bwd" in low else
             ("conv/gemm f32" if any(t in low for t in (
                 "sgemm", "f32f32", "ffma")) else "conv/gemm")
             if any(w in low for w in (
@@ -1738,14 +1754,17 @@ def run_dit_serving(cfg: Config, weights: dict, device, k3_sites: int):
     return launches, images
 
 
-def run_dit_trainer(weights: dict, device, k3_sites: int) -> dict:
+def run_dit_trainer(weights: dict, device,
+                    k3_sites: int) -> tuple[dict, dict]:
     """Phase 19: the Trainer on the DiT takes TRAIN_STEPS steps at batch
     28 (R = 98) from the seeded weights, without and with tpu.remat; K3
     must launch exactly its sites per forward, and again in the backward
-    under remat.  Returns the launches of both runs."""
+    under remat, and K5 once per site in each backward, with no
+    closed-form attention backward (heads of 64).  Returns K3's and K5's
+    launches of both runs."""
     from torch.profiler import ProfilerActivity, profile
 
-    launches = {}
+    launches, k5 = {}, {}
     for remat in (False, True):
         cfg = dit_config(remat=remat)
         torch.cuda.synchronize()
@@ -1755,7 +1774,8 @@ def run_dit_trainer(weights: dict, device, k3_sites: int) -> dict:
         batches = [train_batch(cfg, it, rng) for it in range(TRAIN_STEPS + 1)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        spatial_self_attention.launches = 0
+        spatial_self_attention.launches = attention_backward.launches = 0
+        _Attention.closed_form_calls = 0
         mark = tracing.mark()
         losses, times = [], []
         for it in range(TRAIN_STEPS):
@@ -1768,6 +1788,12 @@ def run_dit_trainer(weights: dict, device, k3_sites: int) -> dict:
         if steps != TRAIN_STEPS or n != want:
             raise AssertionError(f"DiT training (remat {remat}): K3 "
                                  f"launches {n} != {want} over {steps} steps")
+        n5, closed = attention_backward.launches, _Attention.closed_form_calls
+        if (n5, closed) != (k3_sites * steps, 0):
+            raise AssertionError(
+                f"DiT training (remat {remat}): K5 launches {n5} and closed-"
+                f"form backwards {closed} != {k3_sites * steps} and 0 over "
+                f"{steps} steps")
         if not all(np.isfinite(losses)):
             raise AssertionError(f"non-finite DiT loss: {losses}")
         peak = torch.cuda.max_memory_allocated()
@@ -1780,9 +1806,10 @@ def run_dit_trainer(weights: dict, device, k3_sites: int) -> dict:
             + " ".join(f"{t:.1f}" for t in times[1:])
             + f" (median {median:.1f}); peak memory "
             f"{(peak - base) / 2 ** 30:.2f} GiB above the "
-            f"{base / 2 ** 30:.2f} GiB earlier phases hold; K3 {n} launches "
-            f"over {steps} steps; on {card_line()}")
-        launches["dit_training_remat" if remat else "dit_training"] = n
+            f"{base / 2 ** 30:.2f} GiB earlier phases hold; K3 {n}, K5 {n5} "
+            f"launches over {steps} steps; on {card_line()}")
+        path = "dit_training_remat" if remat else "dit_training"
+        launches[path], k5[path] = n, n5
         if not remat:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1796,7 +1823,7 @@ def run_dit_trainer(weights: dict, device, k3_sites: int) -> dict:
                 f"unprofiled median {median:.1f} ms: {busy / median:.0%}")
         del trainer
         torch.cuda.empty_cache()
-    return launches
+    return launches, k5
 
 
 def check_dit_train_against_cpu(device) -> None:
@@ -2044,9 +2071,9 @@ def dit_k3_shapes(shapes: dict, path: str):
 def run_dit_phases(device) -> dict:
     """Phases 17-22 at configs/dit-small-tpu-4.yaml's widths, then K3
     against its plain version at every shape those paths gave it.
-    Returns K3's per-forward totals at the DiT sites (``sites``), the
-    launches by path, K3's largest error over the phases and the calls
-    per DiT forward."""
+    Returns K3's per-forward totals at the DiT sites (``sites``), K3's
+    launches by path, K5's in the training phase (``k5_launches``), K3's
+    largest error over the phases and the calls per DiT forward."""
     dcfg = dit_config()
     say(f"DiT: {DIT_CONFIG} read by the port's reader (hidden "
         f"{dcfg.denoiser.hidden_size}, depth {dcfg.denoiser.depth}, "
@@ -2064,7 +2091,8 @@ def run_dit_phases(device) -> dict:
         launches["dit_serving"], served = run_dit_serving(
             dcfg, weights, device, calls)
     with dit_k3_shapes(shapes, "dit_training"):                  # 19
-        launches.update(run_dit_trainer(weights, device, calls))
+        trained, k5_launches = run_dit_trainer(weights, device, calls)
+        launches.update(trained)
     check_dit_train_against_cpu(device)
     torch.cuda.empty_cache()
     with dit_k3_shapes(shapes, "dit_ancestral"):                 # 20
@@ -2080,8 +2108,8 @@ def run_dit_phases(device) -> dict:
         err = max(err, check_attention(Counter({(s, c): 0}), device, rows=b,
                                        timed=False, heads=True)[
                                            "max_abs_err"])
-    return {"sites": sites, "launches": launches, "max_abs_err": err,
-            "calls": calls, "config": dcfg}
+    return {"sites": sites, "launches": launches, "k5_launches": k5_launches,
+            "max_abs_err": err, "calls": calls, "config": dcfg}
 
 
 # ----------------------------------------------------------------------
@@ -3126,9 +3154,10 @@ def check_adm_group_norm(gn_sites, groups: int, device,
 
 
 def attention_backward_ms(prof) -> Counter:
-    """Device ms by kernel family of the kernels the closed-form attention
-    backward (``_Attention.backward``, ``ops/attention.py``) launched in a
-    profiled step: those under its autograd node's events."""
+    """Device ms by kernel family of the kernels the attention backward
+    (``_Attention.backward``, ``ops/attention.py``: K5 or the closed form)
+    launched in a profiled step: those under its autograd node's
+    events."""
     fam = Counter()
 
     def walk(e):
@@ -3173,7 +3202,8 @@ def run_adm_trainer(device, gn_sites, attn_sites) -> dict:
     first_ms = (time.perf_counter() - t0) * 1e3
     for fn in (group_norm_act, group_norm_act_backward):
         fn.launches = fn.affine_launches = 0
-    spatial_self_attention.launches = 0
+    spatial_self_attention.launches = attention_backward.launches = 0
+    _Attention.closed_form_calls = 0
     mark = tracing.mark()
     t0 = time.perf_counter()
     loss = trainer.train_step(batches[1]).item()
@@ -3181,13 +3211,16 @@ def run_adm_trainer(device, gn_sites, attn_sites) -> dict:
     launches = {"k1": group_norm_act.launches,
                 "k2": group_norm_act_backward.launches,
                 "k3": spatial_self_attention.launches,
+                "k5": attention_backward.launches,
+                "closed_form": _Attention.closed_form_calls,
                 "k1.affine": group_norm_act.affine_launches,
                 "k2.affine": group_norm_act_backward.affine_launches}
     forwards = forwards_since(mark)
     n_gn = sum(gn_sites.values())
     n_ada = sum(n for k, n in gn_sites.items() if k[3])
-    want = {"k1": n_gn, "k2": n_gn, "k3": sum(attn_sites.values()),
-            "k1.affine": n_ada, "k2.affine": n_ada}
+    n_attn = sum(attn_sites.values())
+    want = {"k1": n_gn, "k2": n_gn, "k3": n_attn, "k5": n_attn,
+            "closed_form": 0, "k1.affine": n_ada, "k2.affine": n_ada}
     say(f"ADM train step spans: {span_summary(mark)}")
     if forwards != 1 or launches != want:
         raise AssertionError(f"ADM training launch counters {launches} != "
@@ -3204,7 +3237,8 @@ def run_adm_trainer(device, gn_sites, attn_sites) -> dict:
         f"{len(start)} parameter tensors moved")
     say(f"launches in one ADM training step: K1 {launches['k1']} (with a "
         f"(B, C) affine {launches['k1.affine']}), K2 {launches['k2']} "
-        f"({launches['k2.affine']}), K3 {launches['k3']}")
+        f"({launches['k2.affine']}), K3 {launches['k3']}, K5 "
+        f"{launches['k5']}, closed-form backward {launches['closed_form']}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3213,7 +3247,7 @@ def run_adm_trainer(device, gn_sites, attn_sites) -> dict:
     busy = report_profile(prof, f"one ADM training step at {rows} rows",
                           (time.perf_counter() - t0) * 1e3)
     attn = attention_backward_ms(prof)
-    say(f"closed-form attention backward in that step: "
+    say(f"attention backward (K5) in that step: "
         f"{sum(attn.values()):.2f} ms of the {busy:.2f} device-ms ("
         + ", ".join(f"{k} {v:.2f} ms" for k, v in attn.most_common())
         + ")")
@@ -3279,8 +3313,172 @@ def adm_kernels(adm: dict) -> dict:
     return out
 
 
+# phase 29: K5, the fused attention backward for heads of 64
+
+def check_attention_backward(sites, device, what: str) -> dict:
+    """K5 at each (B x heads, S) site of ``sites`` (a Counter, calls per
+    step): q, k, v the planes of one (3, B x heads, S, 64) bf16 copy, as
+    MHAttention hands them over, and an upstream gradient of bf16 values
+    (the models' cast) and a general f32 one.  Against the closed form and
+    an f64 closed form on 32 rows (error no larger than twice the closed
+    form's plus one bf16 ulp), two calls equal bit for bit; timed (device
+    time in a CUDA graph) with its bound (bytes: q, k, v, dq, dk, dv in
+    bf16 and g in f32; FLOPs: the four products, 8 x S^2 x 64 a row), the
+    closed form (eager call) and the autograd backward of
+    F.scaled_dot_product_attention on bf16 (eager call; timed only).
+    Returns the per-step totals."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_bytes_ms", "max_abs_err"), 0.0)
+    for (b, s), n in sorted(sites.items()):
+        q, k, v = torch.randn((3, b, s, 64), generator=gen,
+                              device=device).bfloat16()
+        g = torch.randn((b, s, 64), generator=gen, device=device) * 0.01
+        scale = 0.125
+        worst = 0.0
+        for kind, gg in (("bf16 values", g.bfloat16().float()), ("f32", g)):
+            got = attention_backward(q, k, v, gg, scale)
+            again = attention_backward(q, k, v, gg, scale)
+            closed = spatial_self_attention_backward(q, k, v, gg, scale)
+            exact = spatial_self_attention_backward(
+                q[:32].double(), k[:32].double(), v[:32].double(),
+                gg[:32].double(), scale)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"K5 ({b}, {s}, 64): two calls differ")
+            notes = []
+            for name, x, c, e in zip(("dq", "dk", "dv"), got, closed, exact):
+                top = e.abs().max().item()
+                err = (x[:32].double() - e).abs().max().item()
+                err_c = (c[:32].double() - e).abs().max().item()
+                gap = (x.float() - c.float()).abs().max().item()
+                if not (err <= 2 * err_c + bf16_ulp(top)
+                        and gap <= 2 * bf16_ulp(c.float().abs().max().item())):
+                    raise AssertionError(
+                        f"K5 ({b}, {s}, 64) g {kind} {name}: err {err} (closed "
+                        f"form {err_c}), against the closed form {gap}")
+                worst = max(worst, gap)
+                notes.append(f"{name} {err:.3g} ({err_c:.3g})")
+            say(f"K5 ({b}, {s}, 64) g {kind}: err against f64 (closed form's) "
+                + ", ".join(notes))
+            del got, again, closed, exact
+        gb = g.bfloat16().float()
+        ms = device_ms(lambda: attention_backward(q, k, v, gb, scale))
+        plain = call_ms(lambda: spatial_self_attention_backward(
+            q, k, v, gb, scale), iters=3, warmup=1)
+        q4, k4, v4 = (t.view(b, 1, s, 64).clone().requires_grad_()
+                      for t in (q, k, v))
+        o = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        go = gb.bfloat16().view(b, 1, s, 64)
+        lib = call_ms(lambda: torch.autograd.grad(
+            o, (q4, k4, v4), go, retain_graph=True), iters=5, warmup=1)
+        nbytes = b * s * 64 * (6 * 2 + 4)
+        bms, by = bound_ms(nbytes, 8.0 * b * s * s * 64, torch.bfloat16)
+        say(f"K5 {what} ({b}, {s}, 64) x{n}: {ms * 1e3:.1f} us, closed form "
+            f"{plain * 1e3:.1f} us, SDPA backward {lib * 1e3:.1f} us, bound "
+            f"{bms * 1e3:.1f} us ({by}) = {bms / ms:.1%}")
+        add_site(tot, n, ms, plain, lib, bms, nbytes, worst)
+        del q, k, v, g, gb, o, q4, k4, v4
+        torch.cuda.empty_cache()
+    say(f"K5 per {what} step: {tot['ms']:.3f} ms, closed form "
+        f"{tot['plain_ms']:.3f} ms, SDPA backward {tot['library_ms']:.3f} ms,"
+        f" bound {tot['bound_ms']:.3f} ms = {tot['bound_ms'] / tot['ms']:.1%}")
+    return tot
+
+
+def count_attention_backward(cfg: Config, device, what: str,
+                             weights: dict | None = None) -> dict:
+    """One counted Trainer step of ``cfg`` after a warm-up step: K3, K5 and
+    closed-form backward calls."""
+    trainer = Trainer(cfg, device=device, state_dict=weights, seed=SEED)
+    rng = np.random.default_rng(SEED + 29)
+    batches = [train_batch(cfg, it, rng) for it in range(2)]
+    trainer.train_step(batches[0]).item()
+    spatial_self_attention.launches = attention_backward.launches = 0
+    _Attention.closed_form_calls = 0
+    loss = trainer.train_step(batches[1]).item()
+    counts = {"k3": spatial_self_attention.launches,
+              "k5": attention_backward.launches,
+              "closed_form": _Attention.closed_form_calls}
+    say(f"{what} training step: loss {loss:.5f}; K3 {counts['k3']}, K5 "
+        f"{counts['k5']}, closed-form backward {counts['closed_form']}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"non-finite {what} loss {loss}")
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_k5_phase(device) -> dict:
+    """Phase 29: K5 at every attention site of the DiT (R = 98) and the
+    ADM (R = 112), timed against its bound, the closed form and SDPA's
+    backward; K3's forward at the ADM's sites, as phase 28 times it; the
+    attention backward's route in one training step of each family: the
+    DiT 12 K5 and 0 closed form, the paper UNet (single heads of 192 and
+    320 channels) 0 and 8.  The ADM's step (22 and 0) is phase 28's."""
+    t_phase = time.perf_counter()
+    dcfg = dit_config()
+    dit = Counter({(b, s): n for (b, s, _), n in
+                   dit_sites(dcfg, TRAIN_ROWS).items()})
+    _, attn = adm_sites(adm_config(), device)
+    adm = Counter()
+    for (s, _, heads), n in attn.items():
+        adm[(ADM_ROWS * heads, s)] += n
+    out = {"dit": check_attention_backward(dit, device, "DiT"),
+           "adm": check_attention_backward(adm, device, "ADM")}
+    k3 = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_bytes_ms", "max_abs_err"), 0.0)
+    for (s, hd, heads), n in sorted(attn.items()):
+        site = check_attention(Counter({(s, hd): n}), device,
+                               rows=ADM_ROWS * heads, heads=True)
+        for k, v in site.items():
+            k3[k] = max(k3[k], v) if k == "max_abs_err" else k3[k] + v
+        torch.cuda.empty_cache()
+    say(f"ADM K3 per forward at {ADM_ROWS} rows: {k3['ms']:.3f} ms, bound "
+        f"{k3['bound_ms']:.3f} ms = {k3['bound_ms'] / k3['ms']:.1%}")
+    out["adm_k3_ms"] = k3["ms"]
+    routes = {
+        "dit": count_attention_backward(dcfg, device, "DiT",
+                                        dit_weights(dcfg)),
+        "unet": count_attention_backward(train_config(), device,
+                                         "paper UNet")}
+    want = {"dit": {"k3": 12, "k5": 12, "closed_form": 0},
+            "unet": {"k3": 8, "k5": 0, "closed_form": 8}}
+    if routes != want:
+        raise AssertionError(f"attention backward routes {routes} != {want}")
+    out["routes"] = routes
+    say(f"phase 29 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def k5_kernel(k5: dict, adm: dict, by_path: dict) -> dict:
+    """The ``kernels`` entry of K5 from phases 29 and 28: its totals per
+    ADM training step (the DiT's apart), its launches in the counted
+    steps of phases 28 and 29 and in ``by_path`` (other phases')."""
+    tot, dit = k5["adm"], k5["dit"]
+    by_path = {"dit_training_step": k5["routes"]["dit"]["k5"],
+               "adm_training": adm["launches"]["k5"],
+               "unet_training": k5["routes"]["unet"]["k5"], **by_path}
+    pick = ("ms", "plain_ms", "library_ms", "bound_ms")
+    return {
+        "name": "attention_backward", "route": "cuda",
+        "source": "viewfusion_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "none: the JAX op's _attn_bwd leaves the closed form "
+                    "to XLA",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(tot["max_abs_err"], dit["max_abs_err"]),
+        **{k: tot[k] for k in pick},
+        "bound_by": ("bytes" if tot["bound_bytes_ms"] >= tot["bound_ms"]
+                     else "operations"),
+        "per": f"one ADM training step's attention backwards at "
+               f"{ADM_ROWS} rows",
+        "dit_train_step": {"per": f"one DiT training step at {TRAIN_ROWS} "
+                                  f"rows", **{k: dit[k] for k in pick}}}
+
+
 def main() -> int:
     only_adm = sys.argv[1:2] == ["--adm"]
+    only_k5 = sys.argv[1:2] == ["--k5"]
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke.py needs an NVIDIA GPU",
               file=sys.stderr)
@@ -3301,6 +3499,16 @@ def main() -> int:
     say(f"build: {time.perf_counter() - t0:.1f} s")
     print(_native.build_log(), file=sys.stderr, flush=True)
 
+    if only_k5:     # 29, then 28
+        k5 = run_k5_phase(device)
+        adm = run_adm_phase(device)
+        say(card_line())
+        say(json.dumps({"kernels": [k5_kernel(k5, adm, {})],
+                        "adm": adm_kernels(adm)}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if only_adm:    # 28 alone
         adm = run_adm_phase(device)
         say(card_line())
@@ -3448,6 +3656,10 @@ def main() -> int:
 
     # 28. the ADM denoiser: K1/K2 with a (B, C) affine, K3, a train step
     adm = run_adm_phase(device)
+    torch.cuda.empty_cache()
+
+    # 29. K5 at the DiT's and the ADM's sites; the backward's route a step
+    k5 = run_k5_phase(device)
 
     kernels = []
     for name, route_src, replaces, tot, key, per in (
@@ -3510,6 +3722,7 @@ def main() -> int:
         "library_ms": k4["library_ms"],
         "per": f"one training step's {k4_calls} conv weight gradients at "
                f"{TRAIN_ROWS} rows"})
+    kernels.append(k5_kernel(k5, adm, dit["k5_launches"]))
     say(card_line())
     say(json.dumps({"kernels": kernels,
                     "graphed_serving_launches": graphed,

@@ -32,7 +32,8 @@ def main() -> None:
     t0 = time.perf_counter()
     dit = cs.run_dit_phases(torch.device("cuda"))
     cs.say(f"phases 17-22: {time.perf_counter() - t0:.1f} s; K3 max abs "
-           f"err {dit['max_abs_err']:.3g}; launches {dit['launches']}")
+           f"err {dit['max_abs_err']:.3g}; launches {dit['launches']}; K5 "
+           f"{dit['k5_launches']}")
 
 
 if __name__ == "__main__":

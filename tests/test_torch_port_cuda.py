@@ -19,7 +19,11 @@ experiment loop runs ``cli.main -t`` on the card at TINY size and reads
 its run dir back on the CPU; the native shard reader is held against
 the PNG codec (no card needed).  K3 runs at the DiT's sites (the serving
 and training rows of dit-small-tpu-4, three q/k/v layouts), and a tiny
-DiT's train steps on the card are held against the CPU.
+DiT's train steps on the card are held against the CPU.  K5, the fused
+attention backward for heads of 64, runs at every DiT (R = 98) and ADM
+(R = 112) site shape, with an upstream gradient of bf16 values and a
+general f32 one, at ragged S, through autograd, and refuses what it does
+not take.
 """
 
 import json
@@ -31,7 +35,8 @@ import torch
 from viewfusion_tpu_torch.config import UNetConfig
 from viewfusion_tpu_torch.models.unet import UNet
 from viewfusion_tpu_torch.ops.attention import (
-    attention_plan, spatial_self_attention, spatial_self_attention_reference)
+    attention_backward, attention_plan, spatial_self_attention,
+    spatial_self_attention_backward, spatial_self_attention_reference)
 from viewfusion_tpu_torch.ops.conv_wgrad import (conv3x3, conv3x3_wgrad,
                                                  conv3x3_wgrad_reference,
                                                  wgrad_plan)
@@ -190,6 +195,137 @@ def test_attention_kernel_rejects_mismatched_inputs(device):
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros((2, 8, 16), device=device).transpose(1, 2)
         spatial_self_attention(t, t, t, 1.0)
+
+
+# K5's sites (B x heads, S) at heads of 64: the DiT's at R = 98 (6 heads),
+# the ADM's at R = 112 (6, 9 and 12 heads at S = 1024, 256 and 64)
+K5_SITES = [(98 * 6, 256), (112 * 6, 1024), (112 * 9, 256), (112 * 12, 64)]
+
+
+def _k5_inputs(device, b, s, seed, g_kind):
+    """q, k, v as the planes of one (3, B, S, 64) bf16 copy (what
+    MHAttention hands over) and an upstream gradient: bf16 values held in
+    f32 (the gradient of the models' cast after the attention) or a
+    general f32 one, whose low bits make K5 run its split-term products."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = torch.randn((3, b, s, 64), generator=gen,
+                          device=device).bfloat16()
+    g = torch.randn((b, s, 64), generator=gen, device=device) * 0.01
+    if g_kind == "bf16-values":
+        g = g.bfloat16().float()
+    return q, k, v, g
+
+
+def _check_k5(q, k, v, g, scale, f64_rows=32):
+    """K5 against the closed form (f32 products, TF32 off) and both
+    against an f64 closed form on the first ``f64_rows`` rows: K5's error
+    no larger than twice the closed form's plus one bf16 ulp of the
+    output's scale; K5 within two bf16 ulps of the closed form; two K5
+    calls equal bit for bit."""
+    before = attention_backward.launches
+    got = attention_backward(q, k, v, g, scale)
+    again = attention_backward(q, k, v, g, scale)
+    torch.cuda.synchronize()
+    assert attention_backward.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    closed = spatial_self_attention_backward(q, k, v, g, scale)
+    n = f64_rows
+    exact = spatial_self_attention_backward(
+        q[:n].double(), k[:n].double(), v[:n].double(), g[:n].double(),
+        scale)
+    for name, a, c, e in zip(("dq", "dk", "dv"), got, closed, exact):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape, name
+        top = e.abs().max().item()
+        err = (a[:n].double() - e).abs().max().item()
+        err_closed = (c[:n].double() - e).abs().max().item()
+        assert err <= 2 * err_closed + _bf16_ulp(top), (name, err,
+                                                        err_closed)
+        top = c.float().abs().max().item()
+        assert (a.float() - c.float()).abs().max().item() <= \
+            2 * _bf16_ulp(top), name
+
+
+@pytest.mark.parametrize("g_kind", ["bf16-values", "f32"])
+@pytest.mark.parametrize("site", K5_SITES)
+def test_attention_backward_kernel_at_the_dit_and_adm_sites(device, site,
+                                                           g_kind):
+    b, s = site
+    _check_k5(*_k5_inputs(device, b, s, b + s, g_kind), 0.125)
+
+
+@pytest.mark.parametrize("g_kind", ["bf16-values", "f32"])
+@pytest.mark.parametrize("shape", [(2, 100, 64), (3, 5, 64), (1, 1, 64),
+                                   (2, 65, 64), (4, 127, 64), (2, 1000, 64)])
+def test_attention_backward_kernel_at_ragged_s(device, shape, g_kind):
+    """S that 64 does not divide: the last tile's rows and keys past S
+    are left out of every sum."""
+    b, s, _ = shape
+    _check_k5(*_k5_inputs(device, b, s, 7 * s, g_kind), 0.125)
+
+
+def test_attention_backward_kernel_takes_strided_rows(device):
+    """q, k, v as column slices of one (B, S, 3 x 64) buffer (row stride
+    192): K5 reads the same rows as from contiguous copies."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    qkv = torch.randn((6, 200, 192), generator=gen, device=device).bfloat16()
+    g = torch.randn((6, 200, 64), generator=gen, device=device)
+    q, k, v = qkv[..., :64], qkv[..., 64:128], qkv[..., 128:]
+    got = attention_backward(q, k, v, g, 0.125)
+    want = attention_backward(q.contiguous(), k.contiguous(),
+                              v.contiguous(), g, 0.125)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    _check_k5(q, k, v, g, 0.125)
+
+
+def test_attention_backward_through_autograd_on_the_card(device):
+    """A bf16 call with heads of 64 under autograd takes K5 (one launch,
+    no closed-form call) and gives the closed form's gradients within two
+    bf16 ulps; one with C = 192 (the UNet's) takes the closed form."""
+    from viewfusion_tpu_torch.ops.attention import _Attention
+
+    for c, k5, closed in ((64, 1, 0), (192, 0, 1)):
+        gen = torch.Generator(device=device).manual_seed(c)
+        qkv = torch.randn((3, 12, 256, c), generator=gen,
+                          device=device).bfloat16()
+        g = torch.randn((12, 256, c), generator=gen,
+                        device=device).bfloat16()
+        ts = [t.clone().requires_grad_() for t in qkv]
+        before = (attention_backward.launches, _Attention.closed_form_calls)
+        spatial_self_attention(*ts, c ** -0.5).bfloat16().backward(g)
+        torch.cuda.synchronize()
+        assert (attention_backward.launches - before[0],
+                _Attention.closed_form_calls - before[1]) == (k5, closed)
+        want = spatial_self_attention_backward(*qkv, g.float(), c ** -0.5)
+        for t, w in zip(ts, want):
+            top = w.float().abs().max().item()
+            assert (t.grad.float() - w.float()).abs().max().item() <= \
+                2 * _bf16_ulp(top)
+
+
+def test_attention_backward_kernel_rejects_mismatched_inputs(device):
+    q = torch.zeros((2, 16, 64), device=device, dtype=torch.bfloat16)
+    g = torch.zeros((2, 16, 64), device=device)
+    with pytest.raises(ValueError, match="match q"):
+        attention_backward(q, q.float(), q, g, 1.0)
+    with pytest.raises(ValueError, match="match q"):
+        attention_backward(q, q, q.cpu(), g, 1.0)
+    with pytest.raises(ValueError, match="g must be"):
+        attention_backward(q, q, q, g[:, 1:], 1.0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        attention_backward(q.float(), q.float(), q.float(), g, 1.0)
+    with pytest.raises(ValueError, match="heads of 64"):
+        t = torch.zeros((2, 16, 128), device=device, dtype=torch.bfloat16)
+        attention_backward(t, t, t, torch.zeros_like(t, dtype=torch.float32),
+                           1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((2, 64, 16), device=device,
+                        dtype=torch.bfloat16).transpose(1, 2)
+        attention_backward(t, t, t, g, 1.0)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        t = torch.zeros((2, 16, 196), device=device,
+                        dtype=torch.bfloat16)[..., :64]
+        attention_backward(t, t, t, g, 1.0)
 
 
 # (B, H, W, C, G): the forward's shapes plus paper sites at R = 98, among

@@ -1,7 +1,8 @@
 """The host-side work plans of the port's kernels, on the CPU.
 
-``attention_plan`` (K3), ``wgrad_plan`` (K4) and ``group_norm_plan`` (K1
-and K2) decide the blocks the kernels launch.  At every main-path site
+``attention_plan`` (K3), ``attention_backward_plan`` (K5), ``wgrad_plan``
+(K4) and ``group_norm_plan`` (K1 and K2) decide the blocks the kernels
+launch.  At every main-path site
 of the paper UNet (found by hooks on the model, as ``chip_smoke.py``
 finds them) and at the card tests' edge shapes, the plans must cover
 each query and output channel, each pixel, or each row of a sample
@@ -19,7 +20,8 @@ import torch
 from viewfusion_tpu_torch.config import Config
 from viewfusion_tpu_torch.models import unet as unet_module
 from viewfusion_tpu_torch.models.unet import GroupNormAct, SelfAttention, UNet
-from viewfusion_tpu_torch.ops.attention import attention_plan
+from viewfusion_tpu_torch.ops.attention import (attention_backward_plan,
+                                                attention_plan)
 from viewfusion_tpu_torch.ops.conv_wgrad import wgrad_plan
 from viewfusion_tpu_torch.ops.groupnorm import group_norm_plan
 
@@ -131,6 +133,45 @@ def test_attention_plan_covers_edge_shapes(shape):
     plan = attention_plan(*shape)
     assert (_attention_coverage(*shape, plan) == 1).all()
     assert plan["part_width"] % 8 == 0 and plan["part_width"] <= 192
+
+
+# K5's main-path sites, (rows x heads, S): the DiT's at R = 98 (6 heads),
+# the ADM's at R = 112 (6, 9 and 12 heads at 32, 16 and 8 px)
+K5_SITES = [(98 * 6, 256), (112 * 6, 1024), (112 * 9, 256), (112 * 12, 64)]
+
+
+@pytest.mark.parametrize("b, s", K5_SITES + [(2, 100), (1, 5), (3, 64),
+                                              (2, 65), (1, 1)])
+def test_attention_backward_plan_covers_every_query_and_key_once(b, s):
+    """Tiles of 64 cover S once, the last one ragged where 64 does not
+    divide S; each pass launches a block per (row, tile); the scratch
+    holds g's three planes, each tile's statistics and its mark."""
+    plan = attention_backward_plan(b, s, 64)
+    tiles = plan["tiles"]
+    hits = np.zeros(s, dtype=np.int32)
+    for t in range(tiles):
+        assert t * 64 < s  # no tile lies wholly past S
+        hits[t * 64:(t + 1) * 64] += 1
+    assert (hits == 1).all()
+    assert plan["blocks"] == b * tiles
+    assert plan["planes"] == (3, b, s, 64)
+    assert plan["stats"] == (b, tiles, 3, 64)
+    assert plan["marks"] == (b, tiles)
+
+
+def test_attention_backward_plan_fills_the_card_at_the_main_path_sites():
+    """Every DiT and ADM site gives each pass at least two blocks per SM
+    of the H100: 2352, 10752, 4032 and 1344 blocks."""
+    blocks = [attention_backward_plan(b, s, 64)["blocks"]
+              for b, s in K5_SITES]
+    assert blocks == [2352, 10752, 4032, 1344]
+    assert min(blocks) >= 2 * H100_SMS
+
+
+@pytest.mark.parametrize("c", [8, 32, 63, 65, 128, 192, 320])
+def test_attention_backward_plan_takes_heads_of_64_alone(c):
+    with pytest.raises(ValueError, match="heads of 64"):
+        attention_backward_plan(2, 256, c)
 
 
 def _check_wgrad_plan(b, h, w, cin, cout, dtype):

@@ -164,12 +164,20 @@ def test_group_norm_autograd_matches_jax_vjp(act):
                                    atol=2e-6 * np.abs(w).max())
 
 
-@pytest.mark.parametrize("strided", [False, True])
-def test_attention_autograd_matches_jax_vjp(strided):
+@pytest.mark.parametrize("strided, shape", [
+    pytest.param(False, (2, 36, 24), id="False"),
+    pytest.param(True, (2, 36, 24), id="True"),
+    # heads of 64 (K5's on the card) at a tiny batch: the DiT's S = 256,
+    # the ADM's S = 1024, 256 and 64
+    pytest.param(False, (2, 256, 64), id="dit-s256"),
+    pytest.param(False, (1, 1024, 64), id="adm-s1024"),
+    pytest.param(True, (3, 256, 64), id="adm-s256"),
+    pytest.param(False, (4, 64, 64), id="adm-s64")])
+def test_attention_autograd_matches_jax_vjp(strided, shape):
     """Closed-form attention backward against jax.vjp of the JAX op on
     its Pallas path; q, k, v as column slices of one qkv buffer (the
     gradient lands in that buffer) or as separate tensors."""
-    b, s, c = 2, 36, 24
+    b, s, c = shape
     rng = np.random.default_rng(6)
     qkv = rng.normal(size=(b, s, 3 * c)).astype(np.float32)
     g = rng.normal(size=(b, s, c)).astype(np.float32)
@@ -195,6 +203,83 @@ def test_attention_autograd_matches_jax_vjp(strided):
     assert spatial_self_attention.launches == before
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=2e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("c, route", [(64, "k5"), (192, "closed_form"),
+                                      (320, "closed_form")])
+def test_attention_backward_route_by_head_width(monkeypatch, c, route):
+    """On the card the backward is chosen by the head width: the DiT's
+    and ADM's heads of 64 take K5, the UNet's single heads of 192 and 320
+    the closed form; the CPU and f32 always take the closed form.  Through
+    the autograd Function (told the tensors are on the card, K5's launch
+    stubbed by the closed form) the counters ``k5.launches`` and
+    ``attn_bwd.closed_form_calls`` show which ran, and the gradients are
+    the closed form's."""
+    from viewfusion_tpu_torch.ops import attention as attn
+
+    real = attn.backward_route
+    assert real("cuda", c, torch.bfloat16) == route
+    assert real("cpu", c, torch.bfloat16) == "closed_form"
+    assert real("cuda", c, torch.float32) == "closed_form"
+    rng = np.random.default_rng(c)
+    qkv = torch.from_numpy(rng.normal(size=(3, 2, 40, c)).astype(
+        np.float32)).bfloat16()
+    g = torch.from_numpy(rng.normal(size=(2, 40, c)).astype(np.float32))
+
+    def grads():
+        ts = [t.clone().requires_grad_() for t in qkv]
+        spatial_self_attention(*ts, c ** -0.5).backward(g)
+        return [t.grad for t in ts]
+
+    before = tracing.counters()
+    want = grads()  # on the CPU: the closed form
+    after = tracing.counters()
+    assert after["k5.launches"] == before["k5.launches"]
+    assert after["attn_bwd.closed_form_calls"] == \
+        before["attn_bwd.closed_form_calls"] + 1
+    monkeypatch.setattr(attn, "backward_route",
+                        lambda dev, cc, dt: real("cuda", cc, dt))
+    monkeypatch.setattr(
+        attn, "_launch_backward",
+        lambda q, k, v, gg, scale, plan:
+        attn.spatial_self_attention_backward(q, k, v, gg, scale))
+    got = grads()
+    last = tracing.counters()
+    k5 = last["k5.launches"] - after["k5.launches"]
+    closed = (last["attn_bwd.closed_form_calls"]
+              - after["attn_bwd.closed_form_calls"])
+    assert (k5, closed) == ((1, 0) if route == "k5" else (0, 1))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_attention_backward_kernel_refuses_what_it_does_not_take():
+    """K5's wrapper checks before it launches: k and v match q in shape,
+    dtype and strides; g has q's shape; bf16; heads of 64; contiguous
+    channels and 8-element row steps; CUDA tensors."""
+    from viewfusion_tpu_torch.ops.attention import attention_backward
+
+    q = torch.zeros((2, 16, 64), dtype=torch.bfloat16)
+    g = torch.zeros((2, 16, 64))
+    with pytest.raises(ValueError, match="match q"):
+        attention_backward(q, q.float(), q, g, 1.0)
+    with pytest.raises(ValueError, match="match q"):
+        attention_backward(q, q[:, :8], q, g, 1.0)
+    with pytest.raises(ValueError, match="g must be"):
+        attention_backward(q, q, q, g[:, :8], 1.0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        attention_backward(q.float(), q.float(), q.float(), g, 1.0)
+    t = torch.zeros((2, 16, 32), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="heads of 64"):
+        attention_backward(t, t, t, torch.zeros((2, 16, 32)), 1.0)
+    t = torch.zeros((2, 64, 16), dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention_backward(t, t, t, g, 1.0)
+    rows = torch.zeros((2, 16, 3 * 64 + 4), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        attention_backward(rows, rows, rows, g, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_backward(q, q, q, g, 1.0)
 
 
 # ---------------------------------------------------------------------

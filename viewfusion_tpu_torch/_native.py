@@ -58,6 +58,10 @@ _SIGNATURES = {
     # stream
     "vf_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _F, _I, _I,
                          _P],
+    # q, k, v, g, dq, dk, dv, planes, stats, marks, B, S, C, batch_stride,
+    # row_stride, scale, stream
+    "vf_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _LL, _LL, _F, _P],
     # x, g, dw, ws, B, H, W, Cin, Cout, TR, TW, splits, dtype, stream
     "vf_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P],

@@ -255,24 +255,6 @@ constexpr int kWgSlots = 3;     // staging ring: K and V tiles alternate
 constexpr int kBlockCh = 64;    // channels of a TMA box: 128-byte rows
 constexpr int kBlockBytes = kWgQ * 128;  // 64 rows x 64 channels, one box
 
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// x0, x1 = hi + mid + lo exactly, each term a bf16 pair (packed as a
-// fragment register: x0 in the low half).
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t* hi,
-                                       uint32_t* mid, uint32_t* lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-  const float2 mf = __bfloat1622float2(m);
-  *hi = as_u32(h);
-  *mid = as_u32(m);
-  *lo = as_u32(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
-}
-
 // Stage 64 rows (r0 ...) x 64 * blocks channels (ch0 ...) of row b of a
 // (B, S, C) tensor map: one 8 KB box per 64 channels (64 rows of 128
 // bytes, 128-byte swizzled), block k at k * 8192.  Rows >= S and channels
@@ -418,7 +400,8 @@ __global__ void __launch_bounds__(kWgThreads)
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
         const int i = 8 * kk + 2 * f;  // f: (row g | g+8) x (keys | keys+8)
-        split3(s[i], s[i + 1], &p[0][kk][f], &p[1][kk][f], &p[2][kk][f]);
+        vf::split3(s[i], s[i + 1], &p[0][kk][f], &p[1][kk][f],
+                   &p[2][kk][f]);
       }
     }
 
@@ -475,20 +458,6 @@ size_t wgmma_smem(int S, int C, int vb) {
          vf::kBarBytes;
 }
 
-// A (B, S, C) bf16 map with row stride `rstride` and batch stride
-// `bstride` (elements), boxes of 64 channels x 64 rows, 128-byte swizzled.
-bool encode_rows(CUtensorMap* map, const void* base, int B, int S, int C,
-                 long long bstride, long long rstride) {
-  const uint64_t dims[3] = {static_cast<uint64_t>(C),
-                            static_cast<uint64_t>(S),
-                            static_cast<uint64_t>(B)};
-  const uint64_t strides[2] = {static_cast<uint64_t>(rstride) * 2,
-                               static_cast<uint64_t>(bstride) * 2};
-  const uint32_t box[3] = {kBlockCh, kWgKeys, 1};
-  return vf::encode_bf16(map, base, 3, dims, strides, box,
-                         CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 template <int NV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int B, int S, int C, int parts, int cpart, long long bstride,
@@ -504,7 +473,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i)
-    if (!encode_rows(&maps[i], bases[i], B, S, C, bstride, rstride))
+    if (!vf::encode_rows(&maps[i], bases[i], B, S, C, bstride,
+                         rstride))
       return cudaErrorInvalidValue;
   const dim3 grid((S + kWgQ - 1) / kWgQ, parts, B);
   attn_fwd_wgmma<NV><<<grid, kWgThreads, wgmma_smem(S, C, NV), stream>>>(

@@ -49,6 +49,21 @@ inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A (B, S, C) bf16 map with row stride `rstride` and batch stride
+// `bstride` (elements, multiples of 8), boxes of 64 channels x 64 rows
+// (8 KB), 128-byte swizzled: the operand tiles of the attention kernels.
+inline bool encode_rows(CUtensorMap* map, const void* base, int B, int S,
+                        int C, long long bstride, long long rstride) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(C),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(rstride) * 2,
+                               static_cast<uint64_t>(bstride) * 2};
+  const uint32_t box[3] = {64, 64, 1};
+  return encode_bf16(map, base, 3, dims, strides, box,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 // --------------------------------------------------------------- device
 // Bytes kept for a kernel's mbarriers at the start of its dynamic shared
 // memory (tiles after them stay 128-byte aligned, as TMA boxes need).

@@ -74,6 +74,47 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
+// x0, x1 = hi + mid + lo exactly, each term a bf16 pair (packed as a
+// fragment register: x0 in the low half): an f32 operand of a bf16
+// product without a rounding (8 + 8 + 8 bits of mantissa).
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t* hi,
+                                       uint32_t* mid, uint32_t* lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
+  *hi = *reinterpret_cast<const uint32_t*>(&h);
+  *mid = *reinterpret_cast<const uint32_t*>(&m);
+  *lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// d (64 x 64 f32) = A B (+ d if `accumulate`), A bf16 from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B bf16 K-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_m64n64k16_rs_kmajor(float* d,
+                                                          const uint32_t* a,
+                                                          uint64_t b,
+                                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
 // d (64 x N f32, N / 2 registers a thread) += A B, A bf16 from registers
 // (the m16n8k16 A fragment of each warp's 16 rows), B bf16 N-major in
 // shared memory; N = 64, 128, 192.

@@ -1,14 +1,19 @@
-"""Dense spatial self-attention: forward kernel K3, its plain version and
-the closed-form backward.
+"""Dense spatial self-attention: forward kernel K3, backward kernel K5,
+their plain versions.
 
 ``spatial_self_attention(q, k, v, scale)`` is the counterpart of
 ``viewfusion_tpu.ops.attention.spatial_self_attention``: single-head
 ``softmax(q k^T * scale) v`` over (B, S, C) tokens with f32 math and an
 f32 result.  On CUDA tensors the forward launches ``csrc/attention.cu``;
 on CPU tensors it runs :func:`spatial_self_attention_reference`.  It is
-differentiable on both devices: the backward is the closed-form gradient
-in plain PyTorch with S and P recomputed in f32, as the JAX op's custom
-VJP (``_attn_bwd``) leaves it to XLA.
+differentiable on both devices.  The backward is chosen by
+:func:`backward_route` from what the input shows: bf16 CUDA tensors with
+heads of 64 (the DiT's and ADM's) launch K5 (``csrc/attention_bwd.cu``,
+:func:`attention_backward`); everything else (the UNet's single heads of
+192 and 320 channels, f32, the CPU) runs the closed form in plain
+PyTorch with S and P recomputed in f32, as the JAX op's custom VJP
+(``_attn_bwd``) leaves it to XLA.  Counters: ``k5.launches`` and
+``attn_bwd.closed_form_calls``.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from torch.autograd.function import once_differentiable
 from viewfusion_tpu_torch import _native, tracing
 
 __all__ = ["spatial_self_attention", "spatial_self_attention_reference",
-           "spatial_self_attention_backward", "attention_plan"]
+           "spatial_self_attention_backward", "attention_plan",
+           "attention_backward", "attention_backward_plan", "backward_route"]
 
 
 def _probs(qf, kf, scale):
@@ -90,6 +96,86 @@ def _launch(q, k, v, scale):
     return out
 
 
+# K5 (csrc/attention_bwd.cu): heads of 64, tiles of 64 queries x 64 keys,
+# one warpgroup a block (the C entry sets and checks each pass's shared
+# memory)
+_K5_HEAD = 64
+_K5_TILE = 64
+
+
+def attention_backward_plan(b: int, s: int, c: int) -> dict:
+    """Work and scratch of K5 for (B, S, C): ``tiles`` tiles of 64
+    queries (and as many of 64 keys) a row, the last ragged where 64
+    does not divide S; each of the three passes (softmax statistics and
+    g's planes, dK and dV, dQ) launches one block per (row, tile),
+    ``blocks`` in all.  Scratch shapes: g split into bf16 planes (hi, mid, lo),
+    each tile's m, 1/l and D, and its mark (nonzero where g has bits
+    below bf16 there)."""
+    if c != _K5_HEAD:
+        raise ValueError(f"attention_backward: K5 takes heads of "
+                         f"{_K5_HEAD} channels, got {c}")
+    tiles = -(-s // _K5_TILE)
+    return {"tiles": tiles, "blocks": b * tiles,
+            "planes": (3, b, s, c), "stats": (b, tiles, 3, _K5_TILE),
+            "marks": (b, tiles)}
+
+
+def backward_route(device_type: str, c: int, dtype) -> str:
+    """Which backward ``_Attention`` runs: ``"k5"`` for bf16 CUDA tensors
+    with heads of 64 channels, else ``"closed_form"``."""
+    if device_type == "cuda" and c == _K5_HEAD and dtype == torch.bfloat16:
+        return "k5"
+    return "closed_form"
+
+
+def _launch_backward(q, k, v, g, scale, plan):
+    if not q.is_cuda:
+        raise ValueError("attention_backward: K5 needs CUDA tensors")
+    b, s, c = q.shape
+    lib = _native.library()
+    dq, dk, dv = (torch.empty((b, s, c), device=q.device,
+                              dtype=torch.bfloat16) for _ in range(3))
+    planes = torch.empty(plan["planes"], device=q.device,
+                         dtype=torch.bfloat16)
+    stats = torch.empty(plan["stats"], device=q.device, dtype=torch.float32)
+    marks = torch.empty(plan["marks"], device=q.device, dtype=torch.int32)
+    err = lib.vf_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), planes.data_ptr(),
+        stats.data_ptr(), marks.data_ptr(), b, s, c, q.stride(0),
+        q.stride(1), float(scale), _native.stream_ptr(q.device))
+    _native.check(err, "attention_backward")
+    return dq, dk, dv
+
+
+def attention_backward(q, k, v, g, scale):
+    """K5: the gradients (dq, dk, dv), bf16, of the attention for bf16 q,
+    k, v (B, S, 64) on the card, sharing shape, strides (channels
+    contiguous, rows and rows of the batch at multiples of 8) and device,
+    and the upstream gradient ``g`` (B, S, 64), taken as f32.  Raises on
+    what the kernel does not take."""
+    for name, t in (("k", k), ("v", v)):
+        if (t.shape != q.shape or t.dtype != q.dtype
+                or t.stride() != q.stride() or t.device != q.device):
+            raise ValueError(f"attention_backward: {name} must match q in "
+                             f"shape, dtype, strides and device")
+    if q.dim() != 3 or g.shape != q.shape or g.device != q.device:
+        raise ValueError(f"attention_backward: q and g must be one (B, S, "
+                         f"C) shape on one device, got {tuple(q.shape)} and "
+                         f"{tuple(g.shape)}")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"attention_backward: K5 takes bfloat16 q, k, v, "
+                         f"got {q.dtype}")
+    if q.stride(-1) != 1 or q.stride(0) % 8 or q.stride(1) % 8:
+        raise ValueError("attention_backward: the channel axis must be "
+                         "contiguous and rows start at multiples of 8 "
+                         "elements")
+    plan = attention_backward_plan(*q.shape)
+    grads = _launch_backward(q, k, v, g.float().contiguous(), scale, plan)
+    attention_backward.launches += 1
+    return grads
+
+
 def _forward(q, k, v, scale):
     if q.is_cuda:
         return _launch(q, k, v, scale)
@@ -99,7 +185,10 @@ def _forward(q, k, v, scale):
 
 
 class _Attention(torch.autograd.Function):
-    """K3 forward (plain version on the CPU), closed-form backward."""
+    """K3 forward (plain version on the CPU); K5 or the closed form
+    backward, as :func:`backward_route` says."""
+
+    closed_form_calls = 0
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -111,6 +200,9 @@ class _Attention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
+        if backward_route(q.device.type, q.shape[-1], q.dtype) == "k5":
+            return (*attention_backward(q, k, v, g, ctx.scale), None)
+        _Attention.closed_form_calls += 1
         return (*spatial_self_attention_backward(q, k, v, g, ctx.scale),
                 None)
 
@@ -122,7 +214,8 @@ def spatial_self_attention(q, k, v, scale):
     strided (column slices of one (B, S, 3C) qkv buffer) but channels
     must be contiguous.  CUDA tensors launch kernel K3; CPU tensors run
     the plain version.  Where autograd records, the call goes through an
-    autograd Function with the closed-form backward."""
+    autograd Function whose backward is K5 or the closed form
+    (:func:`backward_route`)."""
     if q.dim() != 3:
         raise ValueError(
             f"q, k, v must be (B, S, C), got shape {tuple(q.shape)}")
@@ -132,4 +225,7 @@ def spatial_self_attention(q, k, v, scale):
 
 
 spatial_self_attention.launches = 0
+attention_backward.launches = 0
 tracing.watch("k3.launches", spatial_self_attention, "launches")
+tracing.watch("k5.launches", attention_backward, "launches")
+tracing.watch("attn_bwd.closed_form_calls", _Attention, "closed_form_calls")

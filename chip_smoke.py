@@ -294,6 +294,7 @@ from viewfusion_tpu_torch.training.trainer import (Trainer,
 from viewfusion_tpu_torch.utils.convert import (load_trainer_state,
                                                 trainer_state_to_jax,
                                                 unet_state_dict_from_jax)
+from viewfusion_tpu_torch.utils.device import to_device
 from viewfusion_tpu_torch.data.synthetic import render_views_shaded
 from viewfusion_tpu_torch.utils.image import decode_image
 from viewfusion_tpu_torch.utils.png import decode_png, encode_png
@@ -1256,10 +1257,11 @@ def profile_chain(trainer: Trainer, batch: dict, steps: int = 10) -> None:
     their wall time (the rest is the device waiting on the host)."""
     from torch.profiler import ProfilerActivity, profile
 
-    model, put = trainer._infer_model, trainer._put
+    model = trainer._infer_model
     gen, cond, vc, angle = trainer._gen_inputs(
         batch["cond"], batch["view_count"], batch["angle"], 1)
-    idx = (put(batch["sample_idx"]).long(), put(batch["view_idx"]).long())
+    idx = tuple(a.long() for a in to_device(
+        (batch["sample_idx"], batch["view_idx"]), trainer.device))
     carry = model.init_chain(cond, vc, trainer.config.train.sample_num,
                              capture_aux=False, generator=gen)
     segment = lambda ts: model.chain_segment(  # noqa: E731
@@ -1848,7 +1850,7 @@ def run_dit_ancestral(weights: dict, device, k3_sites: int) -> int:
     Returns the launches."""
     cfg = dit_config()
     trainer = Trainer(cfg, device=device, state_dict=weights, seed=SEED)
-    model, put = trainer._infer_model, trainer._put
+    model = trainer._infer_model
     T = model.schedule.num_timesteps
     n, hw = cfg.data.max_views, cfg.denoiser.image_size
     rng = np.random.default_rng(SEED + 22)
@@ -1862,7 +1864,7 @@ def run_dit_ancestral(weights: dict, device, k3_sites: int) -> int:
                  np.float32)}
     gen, cond, vc, angle = trainer._gen_inputs(
         batch["cond"], batch["view_count"], batch["angle"], 0)
-    idx = (put(si).long(), put(vi).long())
+    idx = tuple(a.long() for a in to_device((si, vi), trainer.device))
     sample_num = cfg.train.sample_num
     carry = model.init_chain(cond, vc, sample_num, capture_aux=False,
                              generator=gen)

@@ -19,7 +19,9 @@ experiment loop runs ``cli.main -t`` on the card at TINY size and reads
 its run dir back on the CPU; the native shard reader is held against
 the PNG codec (no card needed).  K3 runs at the DiT's sites (the serving
 and training rows of dit-small-tpu-4, three q/k/v layouts), and a tiny
-DiT's train steps on the card are held against the CPU.  K5, the fused
+DiT's train steps on the card are held against the CPU, and a host
+batch overwritten as soon as ``train_step`` returns trains as an
+untouched copy does (the pinned staging buffers' lifetime).  K5, the fused
 attention backward for heads of 64, runs at every DiT (R = 98) and ADM
 (R = 112) site shape, with an upstream gradient of bf16 values and a
 general f32 one, at ragged S, through autograd, and refuses what it does
@@ -517,6 +519,67 @@ def test_dit_train_step_on_the_card_matches_the_cpu(device):
         assert (a - b).abs().max().item() <= 1e-4
     for a, b in zip(g_c, g_d):
         assert (a - b).abs().max().item() <= 1e-4 * gmax
+
+
+@pytest.mark.parametrize("kind", ["numpy", "cpu_tensor"])
+def test_host_batch_may_be_overwritten_once_train_step_returns(device,
+                                                               kind):
+    """``train_step`` copies a host batch (numpy arrays, or CPU tensors
+    over them) through pinned staging buffers with non-blocking copies:
+    the caller may overwrite its arrays as soon as the step returns,
+    while the copy still waits behind a busy stream.  Two tiny f32 UNet
+    trainers on the card take the same two steps, one from batches
+    overwritten right after each call, one from untouched copies: losses
+    and parameters are equal (cuDNN deterministic)."""
+    import copy
+
+    from viewfusion_tpu_torch.config import Config
+    from viewfusion_tpu_torch.training.trainer import (Trainer,
+                                                       global_packed_counts)
+
+    raw = copy.deepcopy(TINY_RAW)
+    raw["tpu"].update(lr_warmup=0, peak_lr=1e-3)
+    cfg = Config.from_dict(raw)
+    rng = np.random.default_rng(5)
+    batches = []
+    for it in range(2):
+        counts, si, vi = global_packed_counts(0, it, 4, 3)
+        batches.append((dict(
+            target=rng.integers(0, 256, (4, 8, 8, 3), np.uint8),
+            cond=rng.integers(0, 256, (4, 3, 8, 8, 3), np.uint8),
+            angle=rng.uniform(0, 6, 4).astype(np.float32),
+            view_count=counts.astype(np.int32), sample_idx=si,
+            view_idx=vi), rng.normal(size=(4, 8, 8, 3)).astype(np.float32),
+            rng.uniform(0.05, 0.95, 4).astype(np.float32)))
+    kept = copy.deepcopy(batches)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for overwrite in (True, False):
+            tr = Trainer(cfg, device=device, seed=0)
+            losses = []
+            for b, n, g in (batches if overwrite else kept):
+                torch.cuda._sleep(50_000_000)  # the copies queue behind it
+                given = (b, n, g) if kind == "numpy" else (
+                    {k: torch.from_numpy(v) for k, v in b.items()},
+                    torch.from_numpy(n), torch.from_numpy(g))
+                losses.append(tr.train_step(given[0], noise=given[1],
+                                            sample_gammas=given[2]))
+                if overwrite:
+                    b["target"][...] = 255 - b["target"]
+                    b["cond"][...] = 0
+                    b["angle"][...] += 1.0
+                    n[...] = -n
+                    g[...] = 0.5
+            runs.append(([x.item() for x in losses],
+                         [p.detach().cpu() for p in tr.params]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (l_o, p_o), (l_k, p_k) = runs
+    assert l_o == l_k
+    for a, b in zip(p_o, p_k):
+        assert torch.equal(a, b)
 
 
 # (B, H, W, Cin, Cout): ragged channels (6, 3, 5), odd images (5 x 7),

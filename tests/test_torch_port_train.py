@@ -70,6 +70,7 @@ from viewfusion_tpu_torch.training.trainer import (Trainer, norm_img,
                                                    packed_indices,
                                                    stratified_count_multiset)
 from viewfusion_tpu_torch.utils.convert import unet_state_dict_from_jax
+from viewfusion_tpu_torch.utils.device import to_device
 
 torch.set_num_threads(2)
 
@@ -530,26 +531,70 @@ def test_grad_accum_matches_one_full_batch(jax_setup):
         assert (a - b).abs().max().item() <= acc.lr_fn(0)
 
 
-def test_trainer_loads_uint8_batches_and_counts_no_launch(jax_setup):
+def _read_only(a):
+    a = a.copy()
+    a.setflags(write=False)
+    return a
+
+
+@pytest.mark.parametrize("kind", ["numpy", "read_only", "cpu_tensor",
+                                  "microbatch_list"])
+def test_trainer_loads_uint8_batches_and_counts_no_launch(jax_setup, kind):
     """The loader's layout (uint8 images) trains on the CPU through the
-    plain versions: the launch counters do not move, the loss is finite
-    and the parameters change after the (zero) warmup update."""
+    plain versions from every input kind ``to_device`` takes: numpy
+    arrays, read-only ones, CPU tensors, and under grad accumulation a
+    list of the K microbatches' arrays.  Each loss equals the numpy
+    batch's on a second trainer, the launch counters do not move, and
+    the parameters change after the (zero) warmup update."""
     _, _, params, _ = jax_setup
-    tr = _trainer(params)
+    k = 2 if kind == "microbatch_list" else 1
+    tr, ref = (_trainer(params, grad_accum=k) for _ in range(2))
     rng = np.random.default_rng(40)
     counters = (group_norm_act.launches, group_norm_act_backward.launches,
                 spatial_self_attention.launches)
     start = [p.detach().clone() for p in tr.params]
     for it in range(2):
-        batch = _batch(41 + it, salt=it)
-        batch["target"] = rng.integers(0, 256, (B, HW, HW, 3), np.uint8)
-        batch["cond"] = rng.integers(0, 256, (B, N, HW, HW, 3), np.uint8)
-        assert np.isfinite(tr.train_step(batch).item())
+        micro = []
+        for j in range(k):
+            mb = _batch(41 + it * k + j, salt=it * k + j)
+            mb["target"] = rng.integers(0, 256, (B, HW, HW, 3), np.uint8)
+            mb["cond"] = rng.integers(0, 256, (B, N, HW, HW, 3), np.uint8)
+            micro.append(mb)
+        host = micro[0] if k == 1 else {
+            key: np.stack([m[key] for m in micro]) for key in micro[0]}
+        given = {"numpy": lambda: host,
+                 "read_only": lambda: {key: _read_only(v)
+                                       for key, v in host.items()},
+                 "cpu_tensor": lambda: {key: torch.from_numpy(v.copy())
+                                        for key, v in host.items()},
+                 "microbatch_list": lambda: {key: [m[key] for m in micro]
+                                             for key in micro[0]}}[kind]()
+        loss = tr.train_step(given)
+        assert np.isfinite(loss.item())
+        assert torch.equal(loss, ref.train_step(host))
         changed = any(not torch.equal(a, b) for a, b in zip(tr.params, start))
         assert changed == (it == 1)
     assert counters == (group_norm_act.launches,
                         group_norm_act_backward.launches,
                         spatial_self_attention.launches)
+
+
+def test_to_device_passes_what_is_on_the_device_through():
+    """A tensor already on the target device comes back as the same
+    storage, at any depth of the tree; a numpy array becomes a tensor
+    over its own memory, a read-only one over a writeable copy; None
+    stays None and the containers keep their types."""
+    on = torch.arange(6.0).reshape(2, 3)
+    a = np.arange(4, dtype=np.int32)
+    ro = _read_only(np.ones((2, 2), np.uint8))
+    out = to_device({"t": on, "l": [on, a], "p": (ro, None)}, "cpu")
+    assert out["t"] is on and out["l"][0] is on
+    assert out["l"][1].data_ptr() == a.ctypes.data
+    assert isinstance(out["l"], list) and isinstance(out["p"], tuple)
+    assert out["p"][1] is None
+    assert out["p"][0].data_ptr() != ro.ctypes.data
+    assert torch.equal(out["p"][0], torch.ones((2, 2), dtype=torch.uint8))
+    assert to_device(on, torch.device("cpu")) is on
 
 
 # ---------------------------------------------------------------------

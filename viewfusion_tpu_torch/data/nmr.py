@@ -335,7 +335,7 @@ class Batcher:
 
 def prefetch(iterator, depth: int = 2):
     """Background-thread prefetch so host decode overlaps device compute
-    (replaces torch pin_memory/persistent dataloader workers,
+    (replaces the reference's persistent DataLoader workers,
     experiment.py:180-187).  Worker exceptions propagate to the consumer
     — an infinite (resampled) train stream must never end silently, or
     the trainer's epoch loop would busy-spin forever on a masked error."""

@@ -55,6 +55,7 @@ from viewfusion_tpu_torch.models.view_fusion import ViewFusion
 from viewfusion_tpu_torch.training.checkpoint import Checkpoint
 from viewfusion_tpu_torch.utils.convert import (unet_params_to_jax,
                                                 unet_state_dict_from_jax)
+from viewfusion_tpu_torch.utils.device import to_device
 from viewfusion_tpu_torch.utils.image import decode_image
 from viewfusion_tpu_torch.utils.png import FrameTooLarge, encode_png
 
@@ -121,7 +122,7 @@ class ViewFusionService:
 
     ``max_views`` bounds the conditioning buffer (default: the config's
     max_views).  Weights move to ``device`` once, conv/linear weights in
-    the compute dtype."""
+    the compute dtype; batches reach it by ``to_device``'s pinned copy."""
 
     def __init__(self, run_dir: str, batch_size: int = 8,
                  max_wait_ms: float = 30.0, default_steps: int = 50,
@@ -358,11 +359,8 @@ class ViewFusionService:
         try:
             gen = torch.Generator(device=self.device).manual_seed(
                 0x5E11 + bid)
-            dev = self.device
             with tracing.span("serve.h2d"):
-                args = (torch.from_numpy(cond).to(dev),
-                        torch.from_numpy(counts).to(dev),
-                        torch.from_numpy(angles).to(dev))
+                args = to_device((cond, counts, angles), self.device)
             out = self._sample(sampler, *args, steps, gen)
             with tracing.span("serve.copy_back"):
                 out = out.cpu()

@@ -19,7 +19,7 @@ parameter gradient, and makes one Adam update with optax's semantics:
     gradients divided by K (the loss likewise).
 
 Parameters stay f32 (master weights); the UNet casts them to the compute
-dtype per call.
+dtype per call.  Host batches reach the card by ``to_device``'s pinned copy.
 
 More than one process (``torchrun``; ``parallel/mesh.py`` says how the
 ranks form a ``data x view`` grid): each rank is given its rows of the
@@ -99,6 +99,7 @@ from viewfusion_tpu_torch.training.schedulers import lr_schedule
 from viewfusion_tpu_torch.utils.convert import (jax_layout_axes,
                                                 load_trainer_state,
                                                 trainer_state_to_jax)
+from viewfusion_tpu_torch.utils.device import to_device
 from viewfusion_tpu_torch.utils.image import make_grid, save_png, to_uint8
 
 __all__ = ["Trainer", "Experiment", "ExperimentArgs", "norm_img",
@@ -253,20 +254,6 @@ class Trainer:
             self.cond_key = "relative_cond" if config.relative else "cond"
             self.angle_key = "relative_angle" if config.relative else "angle"
 
-    def _put(self, a) -> torch.Tensor:
-        if not isinstance(a, torch.Tensor):
-            a = np.ascontiguousarray(a)
-            a = torch.from_numpy(a if a.flags.writeable else a.copy())
-        return a.to(self.device)
-
-    def _microbatch_put(self, mb: Dict[str, Any], noise, sample_gammas):
-        """A microbatch's arrays, and the draws given for it, on the
-        device."""
-        put = self._put
-        return ({k: put(v) for k, v in mb.items()},
-                None if noise is None else put(noise),
-                None if sample_gammas is None else put(sample_gammas))
-
     def _microbatch_loss(self, mb: Dict[str, torch.Tensor], noise,
                          sample_gammas, masks=None):
         if "img" in mb:  # the fused feed: slices and a same-size bitcast
@@ -327,9 +314,9 @@ class Trainer:
                 with (self._ddp.no_sync() if self._ddp is not None and not last
                       else contextlib.nullcontext()):
                     with tracing.span("train.h2d"):
-                        mb, mb_noise, mb_gammas = self._microbatch_put(
-                            {key: pick(v) for key, v in batch.items()},
-                            pick(noise), pick(sample_gammas))
+                        mb, mb_noise, mb_gammas = to_device(
+                            ({key: pick(v) for key, v in batch.items()},
+                             pick(noise), pick(sample_gammas)), self.device)
                     with tracing.span("train.forward"):
                         loss = self._microbatch_loss(mb, mb_noise, mb_gammas,
                                                      pick(masks))
@@ -410,14 +397,15 @@ class Trainer:
         ``tpu.chain_segments`` segments, no frame capture), DDIM, or
         DPM-Solver++.  Returns the samples (B, H, W, 3) f32 on the
         device."""
-        put, tc = self._put, self.config.train
-        cond = norm_img(put(batch[self.cond_key]))
-        vc = put(batch["view_count"]).long()
-        angle = put(batch[self.angle_key]).float().reshape(-1)
-        packed_idx = None
-        if "sample_idx" in batch:
-            packed_idx = (put(batch["sample_idx"]).long(),
-                          put(batch["view_idx"]).long())
+        tc = self.config.train
+        keys = [self.cond_key, "view_count", self.angle_key]
+        keys += [k for k in ("sample_idx", "view_idx") if k in batch]
+        dev = to_device({k: batch[k] for k in keys}, self.device)
+        cond = norm_img(dev[self.cond_key])
+        vc = dev["view_count"].long()
+        angle = dev[self.angle_key].float().reshape(-1)
+        packed_idx = ((dev["sample_idx"].long(), dev["view_idx"].long())
+                      if "sample_idx" in dev else None)
         if tc.sampler != "ddpm":
             return self._fast_sample(generator, cond, vc, angle, packed_idx)
         return self._generate_segmented(
@@ -444,9 +432,10 @@ class Trainer:
         chain through every sampler."""
         gen = salted_generator(self.config.train.seed + 23, key_salt,
                                self.device)
-        return (gen, norm_img(self._put(cond)),
-                self._put(view_count).long(),
-                self._put(angle).float().reshape(-1))
+        cond, view_count, angle = to_device((cond, view_count, angle),
+                                            self.device)
+        return (gen, norm_img(cond), view_count.long(),
+                angle.float().reshape(-1))
 
     def _generate_np(self, cond, view_count, angle,
                      key_salt: int = 0) -> GenerateOutput:
@@ -743,21 +732,6 @@ class Experiment:
             prepped = fused_feed.pack_batch(prepped)
         return prepped
 
-    def _to_device(self, host: Dict[str, np.ndarray],
-                   stream=None) -> Dict[str, torch.Tensor]:
-        """Host batch -> tensors on the device: pinned copies sent with
-        non-blocking copies on ``stream`` (the current stream if None)."""
-        def put(v):
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if self.device.type == "cuda":
-                with torch.cuda.stream(stream or
-                                       torch.cuda.current_stream()):
-                    t = t.pin_memory().to(self.device, non_blocking=True)
-            return t
-
-        return {k: [put(a) for a in v] if isinstance(v, list) else put(v)
-                for k, v in host.items()}
-
     def _sample_view_count(self, n: int) -> np.ndarray:
         """view_count ~ U{1..max_views} per sample."""
         return self.rng.integers(1, self.max_views + 1, (n,))
@@ -795,7 +769,7 @@ class Experiment:
                     if len(micro) < n_micro:
                         continue
                     host = micro[0] if n_micro == 1 else _stack(micro)
-                    dev = self._to_device(host, side)
+                    dev = to_device(host, self.device, side)
                     event = None
                     if cuda:
                         event = torch.cuda.Event()
@@ -929,7 +903,7 @@ class Experiment:
                 t0 = time.perf_counter()
                 if cfg.packed_views:
                     step_batch = batch  # prepared by _device_feed
-                elif cfg.grad_accum > 1:
+                else:  # host arrays, which train_step copies to the device
                     group = [batch]
                     try:
                         for _ in range(cfg.grad_accum - 1):
@@ -939,13 +913,7 @@ class Experiment:
                     micro = [self._host_prep(
                         b, self._sample_view_count(b["target"].shape[0]))
                         for b in group]
-                    step_batch = self._to_device(
-                        {k: np.stack([m[k] for m in micro])
-                         for k in micro[0]})
-                else:
-                    step_batch = self._to_device(self._host_prep(
-                        batch,
-                        self._sample_view_count(batch["target"].shape[0])))
+                    step_batch = micro[0] if len(micro) == 1 else _stack(micro)
                 # the draws of step it are a function of (seed, it), so a
                 # resumed run draws as an unbroken one would
                 gen.manual_seed(int(np.random.SeedSequence(
@@ -997,7 +965,7 @@ class Experiment:
             else:
                 host = self._host_prep(val_batch, self._sample_view_count(
                     val_batch["target"].shape[0]))
-            batch = self._to_device(host)
+            batch = to_device(host, self.device)
             gen = salted_generator(tc.seed + 17, key_base + k, self.device)
             if mesh.data > 1:
                 b = val_batch["target"].shape[0]

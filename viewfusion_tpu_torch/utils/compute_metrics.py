@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from viewfusion_tpu_torch.ops.metrics import compute_psnr, compute_ssim
+from viewfusion_tpu_torch.utils.device import to_device
 from viewfusion_tpu_torch.utils.image import decode_image
 
 __all__ = ["compute_folder_metrics", "main"]
@@ -74,8 +75,8 @@ def compute_folder_metrics(generated_dir: str, target_dir: str,
     ssims: List[np.ndarray] = []
     lpipss: List[np.ndarray] = []
     for i in range(0, len(gen), batch_size):
-        g = torch.from_numpy(gen[i:i + batch_size]).to(device)
-        t = torch.from_numpy(tgt[i:i + batch_size]).to(device)
+        g, t = to_device((gen[i:i + batch_size], tgt[i:i + batch_size]),
+                         device)
         psnrs.append(compute_psnr(g, t).cpu().numpy())
         ssims.append(compute_ssim(g, t).cpu().numpy())
         if lpips_fn is not None:
